@@ -1,6 +1,6 @@
 // avimux — streaming RIFF/AVI muxer (C ABI, loaded via ctypes).
 //
-// The TPU-native replacement for the reference's only native component: the
+// The replacement for the reference's only native component: the
 // Win32 avifil32.dll P/Invoke layer (aviFileWrapper_src/Avi.cs:175-389,
 // AviManager.cs:33-54, VideoStream.cs:344-365).  Unlike the pure-Python
 // writer in raytpu/io/avi.py (which buffers every frame and assembles the

@@ -1,4 +1,4 @@
-"""raytpu — a TPU-native differentiable ray tracer built from scratch in JAX.
+"""raytpu — a differentiable ray tracer built from scratch in JAX.
 
 Re-designs the full capability surface of the reference C#/XNA Whitted-style
 tracer (eitan3/xna-ray-trace, see SURVEY.md) as array programs:
@@ -11,10 +11,10 @@ tracer (eitan3/xna-ray-trace, see SURVEY.md) as array programs:
                       plus stackless on-device traversal.
 - ``raytpu.render`` — the jitted wavefront renderer (primary/shadow/reflection/
                       refraction waves, adaptive supersampling).
-- ``raytpu.kernels``— Pallas TPU kernels for the hot intersection paths.
+- ``raytpu.kernels``— the Pallas (Triton) walk kernel for the GPU.
 - ``raytpu.diff``   — differentiable rendering: soft-visibility gradients and
                       inverse-rendering optimization.
-- ``raytpu.dist``   — multi-chip/multi-host sharding (jax.sharding Mesh,
+- ``raytpu.dist``   — multi-device/multi-host sharding (jax.sharding Mesh,
                       shard_map, collective gradient reduction).
 - ``raytpu.io``     — PNG/AVI output (replaces the reference's avifil32
                       P/Invoke layer), checkpointing.

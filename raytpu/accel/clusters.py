@@ -1,34 +1,30 @@
-"""Morton-ordered triangle clusters — the TPU-native acceleration structure.
+"""Spatial triangle clusters — the acceleration structure of TILED and the
+walk kernel.
 
 The reference accelerates rays with a two-level recursive octree walked one
 node at a time per ray (MeshOctree.cs:259-353, OctreeSpatialManager.cs:312-
-482).  A per-ray pointer walk is the wrong shape for a TPU: every step is a
-data-dependent gather and the lockstep batch pays the deepest ray's latency
-on every lane (see accel/traverse.py, kept for parity).  The TPU-native
-structure inverts it:
+482).  Here the structure is flat:
 
-- **Clusters, not nodes.**  Triangles are sorted by the Morton code of their
-  centroid and grouped into fixed-size clusters of ``cluster_size``
-  (lane-width 128 by default).  Morton order makes consecutive triangles
-  spatially local, so cluster AABBs are tight — the same locality the
-  reference's octree leaves capture (MeshOctree.cs:224-232), but with **zero
-  duplication**, contiguous memory per cluster, and a flat table instead of
-  a pointer tree.
+- **Clusters, not nodes.**  Triangles are grouped into fixed-size clusters
+  of ``cluster_size`` (128 by default) by spatial-median splits, and the
+  clusters are ordered by the Morton code of their centroid.  Cluster AABBs
+  are tight — the same locality the reference's octree leaves capture
+  (MeshOctree.cs:224-232), but with **zero duplication**, contiguous memory
+  per cluster, and a flat table instead of a pointer tree.
 - **Dense culling, not traversal.**  A batch of rays is tiled; each tile is
   summarized by an origin AABB + direction interval box, and every
-  (tile, cluster) pair gets one conservative interval slab test — a dense
-  (tiles, clusters) VPU computation replacing per-ray tree descent
+  (tile, cluster) pair gets one conservative interval slab test
   (accel/tiled.py).
-- **Front-to-back chunks, not sorted leaf lists.**  Candidate clusters are
-  ordered by conservative entry distance and tested chunk-by-chunk with a
-  strict-min update until every ray's best hit precedes the next chunk —
+- **Front-to-back walks, not sorted leaf lists.**  Candidate clusters are
+  ordered by conservative entry distance and tested one by one with a
+  strict-min update until every ray's best hit precedes the next cluster —
   the batched analog of the reference's sorted-leaf early-stop
   (MeshOctree.cs:281-306), with *exact* nearest-hit semantics.
 
 Build is host-side vectorized NumPy (the content-processor stage of the
 pipeline, TracerModelProcessor.cs:105-119); the device table is a dict of
-flat arrays pre-gathered in Morton order so the hot loop reads contiguous
-(chunk, 128)-triangle blocks.
+flat arrays in cluster slot order, so a walk reads one cluster's triangles
+as contiguous rows.
 """
 
 from __future__ import annotations
@@ -70,43 +66,13 @@ class ClusterTable:
     def num_clusters(self) -> int:
         return self.cluster_min.shape[0]
 
-    def as_device_arrays(self, tri_v1, tri_e1, tri_e2, tri_snormal, tri_mesh,
-                         build_gblock: bool = False,
-                         build_tblock: bool = True,
-                         build_plane: bool = True,
-                         shade_rows=None):
-        """Device dict: cluster AABBs + triangle geometry permuted into Morton
-        order (slot -> original id in ``tri_id``; padding slots are degenerate
-        triangles with ``tri_id == -1`` that can never be hit).
-
-        ``build_gblock``: also bake the MXU-path coefficient table (4x the
-        geometry HBM; only read by kernels/fused.py with ``mxu=True``, which
-        measured slower than the VPU path on v5e — opt-in so default scenes
-        pay nothing for it).
-
-        **Subcluster packing** (``cluster_size`` 64 or 32): Mosaic DMA
-        slices must be 128-lane aligned, so sub-128 clusters cannot each be
-        a block — instead ``subk = 128 // cluster_size`` *consecutive*
-        spatial leaves pack into one 128-lane block (leaves are Morton-
-        ordered, so siblings are spatial neighbors and the block-level AABB
-        stays reasonable).  The fused tlane kernel then culls, orders and
-        tests at SUBCLUSTER granularity — its pair grid is (csub, TS),
-        halving/quartering the per-trip VPU work — while DMAs stay whole
-        128-lane blocks.  Extra keys:
-
-        - ``sub_aabb``  (subk, 6, 8, NC8)  per-sibling AABB cull planes,
-          block-indexed (sibling h of block g at grid position of g);
-        - ``sub_plane`` (subk, 5, 8, NC8)  fitted-plane cull rows
-          (normal xyz, offset d0, half-thickness eps): every member vertex
-          of the leaf lies within |p.n - d0| <= eps, so a conservative
-          beam-vs-thickened-plane interval tightens the entry grid far
-          beyond the AABB slab for near-planar leaves (terrain!).  Baked
-          for csize-128 tables too (subk == 1) under the same key.
-
-        ``aabb``/``block``/``tblock``/``gblock`` stay at BLOCK granularity
-        (the classic row kernel and the ring path are unchanged);
-        ``cluster_min/max``/``tri_*`` stay at leaf granularity (the tiled
-        XLA backend culls the tighter leaves directly)."""
+    def as_device_arrays(self, tri_v1, tri_e1, tri_e2, tri_snormal,
+                         tri_mesh):
+        """Device dict: cluster AABBs + triangle geometry permuted into
+        cluster slot order (slot -> original id in ``tri_id``; padding slots
+        are degenerate triangles with ``tri_id == -1`` that can never be
+        hit).  ``tri_block`` maps an original triangle id to its cluster
+        (shadow clearance, accel/shadowcull.py)."""
         import jax.numpy as jnp
 
         safe = np.maximum(self.order, 0)
@@ -119,266 +85,27 @@ class ClusterTable:
 
         tri_id = np.where(pad, -1, safe).astype(np.int32)
         mesh = np.where(pad, -1, np.asarray(tri_mesh)[safe]).astype(np.int32)
+        cmin = self.cluster_min.astype(np.float32)
+        cmax = self.cluster_max.astype(np.float32)
 
-        def permh(a, fill=0.0):
-            out = np.asarray(a, np.float32)[safe].copy()
-            out[pad] = fill
-            return out
-
-        # Packed per-cluster block for the Pallas kernel's DMA path:
-        # (NC, 24, C) f32 in the *triple-product* form of Möller–Trumbore
-        # (kernels/fused.py): with per-ray w = d x o,
-        #   det   = d·N            N  = cross(e2, e1)  (rows 0-2)
-        #   u*det = w·E2n + d·M1n  M1n = cross(v1, e2) (3-5), E2n = -e2 (6-8)
-        #   v*det = w·E1  + d·M2   M2 = cross(e1, v1)  (9-11), E1 = e1 (12-14)
-        #   t*det = c0 - o·N       c0 = v1·N           (row 15)
-        # Row 16 = triangle id (i32 bits), 17 = mesh id (i32 bits),
-        # 18-23 zero padding.  One block = one DMA; the row count is a
-        # multiple of 8 so Mosaic can slice it under (8, 128) tiling.
-        nc = self.num_clusters
-        c = self.cluster_size
-        # Subcluster packing: subk consecutive leaves share one 128-lane
-        # block (see docstring).  Leaf-granularity arrays are padded to a
-        # whole number of blocks with empty (never-feasible) leaves.
-        subk = {64: 2, 32: 4}.get(c, 1)
-        order = self.order
-        cmin_l = self.cluster_min.astype(np.float32)
-        cmax_l = self.cluster_max.astype(np.float32)
-        bigf = np.float32(3.4028235e38)
-        if subk > 1 and nc % subk:
-            padl = subk - nc % subk
-            order = np.concatenate(
-                [order, np.full(padl * c, -1, order.dtype)])
-            cmin_l = np.concatenate(
-                [cmin_l, np.full((padl, 3), bigf, np.float32)])
-            cmax_l = np.concatenate(
-                [cmax_l, np.full((padl, 3), -bigf, np.float32)])
-            nc = nc + padl
-            safe = np.maximum(order, 0)
-            pad = order < 0
-            tri_id = np.where(pad, -1, safe).astype(np.int32)
-            mesh = np.where(pad, -1,
-                            np.asarray(tri_mesh)[safe]).astype(np.int32)
-        ncg = nc // subk     # number of 128-lane DMA blocks
-        lanes = c * subk     # block lane width (128 when subk > 1)
-        v1h = permh(tri_v1)
-        e1h = permh(tri_e1)
-        e2h = permh(tri_e2)
-        nrm = np.cross(e2h, e1h)
-        m1n = np.cross(v1h, e2h)
-        m2 = np.cross(e1h, v1h)
-        c0 = np.sum(v1h * nrm, axis=-1)
-        block = np.zeros((24, ncg, lanes), np.float32)
-        rows = (
-            [nrm[:, k] for k in range(3)]
-            + [m1n[:, k] for k in range(3)]
-            + [-e2h[:, k] for k in range(3)]
-            + [m2[:, k] for k in range(3)]
-            + [e1h[:, k] for k in range(3)]
-            + [c0]
-        )
-        for i, r in enumerate(rows):
-            block[i] = r.reshape(ncg, lanes)
-        block[16] = tri_id.reshape(ncg, lanes).view(np.float32)
-        block[17] = mesh.reshape(ncg, lanes).view(np.float32)
-        # Rows 18-23: the block's own AABB (min xyz, max xyz) replicated
-        # across lanes — rides along with the geometry DMA so the fused
-        # kernel can run a per-ray slab pretest and skip the whole
-        # Möller–Trumbore pass for clusters no unresolved ray can improve
-        # on (kernels/fused.py).
-        mn_g = cmin_l.reshape(ncg, subk, 3).min(axis=1)  # (NCG, 3)
-        mx_g = cmax_l.reshape(ncg, subk, 3).max(axis=1)
-        for k3 in range(3):
-            block[18 + k3] = mn_g[:, k3:k3 + 1]
-            block[21 + k3] = mx_g[:, k3:k3 + 1]
-        block = np.ascontiguousarray(block.transpose(1, 0, 2))
-
-        # MXU-path coefficient table (kernels/fused.py, mxu=True): per
-        # cluster a (24, 4C) block whose first 16 rows are the matmul
-        # coefficients G with [det | udet | vdet | tdet] as (TS, C) column
-        # blocks of R @ G, R = [d, w, o, 1, pad] per ray:
-        #   det  = d.N                (rows 0-2 = N)
-        #   udet = d.M1n + w.E2n      (rows 0-2 = M1n, 3-5 = -e2)
-        #   vdet = d.M2  + w.E1      (rows 0-2 = M2,  3-5 = e1)
-        #   tdet = -o.N  + c0         (rows 6-8 = -N,  row 9 = c0)
-        # Row 16 carries [tid | tmesh | 0 | 0] as i32 bits.
-        gblock = None
-        if build_gblock:
-            gc = lanes
-            gblock = np.zeros((24, 4 * gc, ncg), np.float32)
-
-            def gcol(q, rows3, vals):  # vals (T, 3) -> rows3 of col block q
-                for k3 in range(3):
-                    gblock[rows3 + k3, q * gc:(q + 1) * gc] = (
-                        vals[:, k3].reshape(ncg, gc).transpose(1, 0))
-
-            gcol(0, 0, nrm)
-            gcol(1, 0, m1n)
-            gcol(1, 3, -e2h)
-            gcol(2, 0, m2)
-            gcol(2, 3, e1h)
-            gcol(3, 6, -nrm)
-            gblock[9, 3 * gc:4 * gc] = c0.reshape(ncg, gc).transpose(1, 0)
-            gblock[16, 0:gc] = tri_id.reshape(ncg, gc).view(np.float32).T
-            gblock[16, gc:2 * gc] = mesh.reshape(ncg, gc).view(np.float32).T
-            # Rows 18-23: block AABB replicated across lanes (see block).
-            for k3 in range(3):
-                gblock[18 + k3] = mn_g[:, k3:k3 + 1].T
-                gblock[21 + k3] = mx_g[:, k3:k3 + 1].T
-            gblock = np.ascontiguousarray(gblock.transpose(2, 0, 1))
-
-        # Fused-kernel cull tables (kernels/fused.py): cluster AABB planes
-        # laid out (6, 8, NC8) with cluster j at (j // NC8, j % NC8) — 8
-        # sublanes x 128-multiple lanes so the in-kernel entry grid is a
-        # dense VPU shape.  Padding columns get +BIG bounds; the kernel
-        # additionally masks them by flat index >= NC.
-        big = np.float32(3.4028235e38)
-        nc8 = max(128, ((-(-ncg // 8) + 127) // 128) * 128)
-        aabb = np.full((6, 8 * nc8), big, np.float32)
-        aabb[0:3, :ncg] = mn_g.T
-        aabb[3:6, :ncg] = mx_g.T
-        aabb = aabb.reshape(6, 8, nc8)
-        root_min = cmin_l.min(axis=0)
-        root_max = cmax_l.max(axis=0)
-        diag = np.float32(np.max(root_max - root_min))
-        margin = np.float32(1e-3) * diag + np.float32(1e-4)
-        root = np.zeros((1, 8), np.float32)
-        root[0, 0:3] = root_min
-        root[0, 3:6] = root_max
-        root[0, 6] = margin
-
-        # Per-SIBLING cull tables, block-indexed (sibling h of block g at
-        # grid position of g): the tlane kernel culls/orders/tests at
-        # subcluster granularity (docstring).  Only baked when subk > 1 —
-        # for csize-128 tables the kernel reads ``aabb`` itself.
-        sub_aabb = None
-        if subk > 1:
-            sub_aabb = np.full((subk, 6, 8 * nc8), big, np.float32)
-            for h in range(subk):
-                sub_aabb[h, 0:3, :ncg] = cmin_l[h::subk].T
-                sub_aabb[h, 3:6, :ncg] = cmax_l[h::subk].T
-            sub_aabb = sub_aabb.reshape(subk, 6, 8, nc8)
-
-        # Fitted-plane cull rows per LEAF (normal xyz, offset d0,
-        # half-thickness eps): the smallest-covariance-eigenvector plane of
-        # the leaf's member vertices; eps covers every vertex (computed in
-        # f64, padded by a diag-relative slack to swallow the kernel's f32
-        # interval rounding).  Near-planar leaves (terrain, walls) get
-        # entry intervals far tighter than their AABB slab — the entry grid
-        # intersects both (kernels/fused.py::_entry_grid plane path).
-        sub_plane = None
-        if build_plane:
-            p3 = np.stack([v1h, v1h + e1h, v1h + e2h], axis=1)
-            p3 = p3.astype(np.float64).reshape(nc, c * 3, 3)
-            memb = np.repeat((order >= 0).reshape(nc, c), 3, axis=1)
-            w = memb.astype(np.float64)
-            cnt = np.maximum(w.sum(1), 1.0)
-            mean = (p3 * w[..., None]).sum(1) / cnt[:, None]
-            dctr = (p3 - mean[:, None, :]) * w[..., None]
-            cov = np.einsum("npk,npl->nkl", dctr, dctr)
-            _evals, evec = np.linalg.eigh(cov)
-            nrm_pl = evec[:, :, 0]  # min-variance direction, unit length
-            proj = np.einsum("npk,nk->np", p3, nrm_pl)
-            pmin = np.where(memb, proj, np.inf).min(1)
-            pmax = np.where(memb, proj, -np.inf).max(1)
-            empty = ~memb.any(1)
-            pmin = np.where(empty, 0.0, pmin)
-            pmax = np.where(empty, 0.0, pmax)
-            d0 = (pmin + pmax) * 0.5
-            half = (pmax - pmin) * 0.5
-            eps = half * (1.0 + 1e-4) + 1e-5 * float(diag) + 1e-30
-            # Empty leaves: a never-constraining plane (their AABB is
-            # already infeasible); padding grid columns stay all-zero,
-            # which the interval logic treats as unconstrained.
-            nrm_pl = np.where(empty[:, None], [0.0, 0.0, 1.0], nrm_pl)
-            d0 = np.where(empty, 0.0, d0)
-            eps = np.where(empty, float(big), eps)
-            sub_plane = np.zeros((subk, 5, 8 * nc8), np.float32)
-            prows = np.concatenate(
-                [nrm_pl.T, d0[None, :], eps[None, :]]).astype(np.float32)
-            for h in range(subk):
-                sub_plane[h, :, :ncg] = prows[:, h::subk]
-            sub_plane = sub_plane.reshape(subk, 5, 8, nc8)
-
-        # Geometry for the tlane kernel (kernels/fused.py _tlane_kernel):
-        # the same 24 semantic channels as ``block``, zero-padded to 32
-        # rows so the kernel can transpose each fetched cluster to (C, 32)
-        # in one hardware-transpose op (Mosaic requires DMA slices 128-
-        # lane-aligned, so the transposed form cannot be STORED directly;
-        # 32 rows keep the transpose input sublane-aligned).  The pair
-        # matrix then runs (C, TS): per-ray reductions cross sublanes
-        # (cheap log-trees of full vector ops) and per-ray state stays
-        # lane-major.
-        tblock = None
-        if build_tblock:
-            tblock = np.concatenate(
-                [block, np.zeros((ncg, 8, lanes), np.float32)], axis=1)
-
-        # Cluster-ordered shade rows for the kernel's in-walk row resolve
-        # (kernels/fused.py): sblock[g, ch, j] = shade channel ch of the
-        # triangle in slot j of block g.  The XLA-side (R, 32) tri_shade
-        # gather measured ~59 ms per 1M rays on v5e — HALF the device
-        # frame (tools/r5lab16) — so the kernel resolves winner rows
-        # itself: per settled tile it DMAs the few winner blocks and
-        # extracts rows with an exact one-hot MXU contraction.  The mesh
-        # channel is stored as a float VALUE (not the tri_shade bitcast):
-        # the extraction splits f32 into three bf16 limbs, and bitcast
-        # int32 patterns are denormals that would flush to zero.
-        sblock = None
-        if shade_rows is not None and build_tblock:
-            safe2 = np.maximum(order, 0)
-            pad2 = order < 0
-            srows = np.asarray(shade_rows, np.float32)[safe2].copy()
-            srows[pad2] = 0.0
-            mesh_val = np.asarray(tri_mesh)[safe2].astype(np.float32)
-            mesh_val[pad2] = -1.0
-            srows[:, 31] = np.where(pad2, -1.0, mesh_val)
-            sblock = np.ascontiguousarray(
-                srows.reshape(ncg, lanes, 32).transpose(0, 2, 1))
-
-        # NOTE: the fused kernel's uvt mode returns the winner's triangle
-        # id as an exact f32 VALUE, which requires ids < 2^24 — enforced at
-        # QUERY time (kernels/fused.py), not here: other backends (tiled,
-        # brute, octree, the ring's dense fallback) and any_hit queries
-        # have no such limit, and >HBM scenes must still bake.
-
-        # Original-triangle-id -> geometry-block map (shadow clearance,
-        # accel/shadowcull.py: a fragment's own block anchors its exact
-        # near-field search).
         n_orig = int(np.asarray(tri_v1).shape[0])
-        tri_block_map = np.zeros(n_orig, np.int32)
-        vslots = order >= 0
-        tri_block_map[order[vslots]] = (
-            np.arange(order.shape[0], dtype=np.int64)[vslots] // lanes
-        ).astype(np.int32)
+        tri_block = np.zeros(n_orig, np.int32)
+        tri_block[self.order[~pad]] = (
+            np.flatnonzero(~pad) // self.cluster_size).astype(np.int32)
 
-        out = {
-            "cluster_min": jnp.asarray(cmin_l),
-            "cluster_max": jnp.asarray(cmax_l),
-            "tri_block": jnp.asarray(tri_block_map),
-            "aabb": jnp.asarray(aabb),
-            "root": jnp.asarray(root),
-            "root_min": jnp.asarray(root_min),
-            "root_max": jnp.asarray(root_max),
+        return {
+            "cluster_min": jnp.asarray(cmin),
+            "cluster_max": jnp.asarray(cmax),
+            "tri_block": jnp.asarray(tri_block),
+            "root_min": jnp.asarray(cmin.min(axis=0)),
+            "root_max": jnp.asarray(cmax.max(axis=0)),
             "tri_id": jnp.asarray(tri_id),
             "tri_v1": perm(tri_v1),
             "tri_e1": perm(tri_e1),
             "tri_e2": perm(tri_e2),
             "tri_snormal": perm(tri_snormal),
             "tri_mesh": jnp.asarray(mesh),
-            "block": jnp.asarray(block),
         }
-        if gblock is not None:
-            out["gblock"] = jnp.asarray(gblock)
-        if tblock is not None:
-            out["tblock"] = jnp.asarray(tblock)
-        if sblock is not None:
-            out["sblock"] = jnp.asarray(sblock)
-        if sub_aabb is not None:
-            out["sub_aabb"] = jnp.asarray(sub_aabb)
-        if sub_plane is not None:
-            out["sub_plane"] = jnp.asarray(sub_plane)
-        return out
 
 
 def _median_split_leaves(centroids: np.ndarray, idx: np.ndarray,
@@ -392,7 +119,7 @@ def _median_split_leaves(centroids: np.ndarray, idx: np.ndarray,
     ~5-7x wider per axis on the 1M-tri bench terrain (a 0.6x0.6 beam
     column overlapped a median of 34 Morton clusters vs ~4-9 spatial
     patches) — which is exactly the number of front-to-back trips the
-    fused kernel's walk has to make per tile.
+    walk has to make per tile.
 
     The split point is the multiple of ``cluster_size`` nearest the median,
     so leaves pack full (plain halving strands ~cluster_size/2 triangles in

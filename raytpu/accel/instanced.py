@@ -10,7 +10,7 @@ of the per-object hits (OctreeSpatialManager.cs:438-452).
 
 The default raytpu path deliberately bakes instances into one world-space
 triangle soup (scene/flatten.py): one flat cluster table, zero per-ray
-transforms, the best shape for the fused kernel.  This module is the
+transforms, the best shape for the walk kernel.  This module is the
 two-level alternative for scenes where N instances of a large mesh would
 blow up memory N-fold: per unique mesh one FlatScene bake, per instance a
 world/inverse pair; rays are transformed per instance, intersected against
@@ -64,7 +64,9 @@ def make_instance(mesh_index: int, world: np.ndarray) -> Instance:
 
 
 def _transform_points(p, m):
-    return p @ m[:3, :3] + m[3, :3]
+    from raytpu.core.xna import mm
+
+    return mm(p, m[:3, :3]) + m[3, :3]
 
 
 def instance_world_aabb(bake, world) -> Tuple[jnp.ndarray, jnp.ndarray]:
@@ -144,7 +146,7 @@ def nearest_hit_instanced(mesh_bakes: List, instances: List[Instance],
     ``mesh_bakes``: per unique mesh, a FlatScene from flattening that mesh
     alone in OBJECT space (``scene/flatten.py`` with an identity
     SceneObject).  The instance loop is unrolled at trace time — one
-    intersector pass per instance, the TPU-native analog of the scene
+    intersector pass per instance, the analog of the scene
     octree's per-candidate-object loop (OctreeSpatialManager.cs:366-379).
 
     ``t_max``: (R,) WORLD-space search bound (converted per instance to
@@ -278,7 +280,7 @@ def nearest_hit_instanced_scan(mesh_bakes: List, instances: List[Instance],
     """``nearest_hit_instanced`` with ONE compiled pass per unique mesh.
 
     The unrolled loop compiles O(instances) intersector passes — fine at
-    the reference's ~5 objects, hostile at 64+.  The TPU-native instance
+    the reference's ~5 objects, hostile at 64+.  The instance
     hierarchy is NOT a pointer octree over bodies (OctreeSpatialManager.cs
     :35-99 — per-ray divergent node walks are the shape the cluster
     redesign removed): instances sharing a mesh bake run under ONE

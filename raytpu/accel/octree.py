@@ -4,18 +4,19 @@ The reference builds a pointer-linked octree per mesh (MeshOctree.cs:56-96):
 the root AABB spans all vertices, nodes split 8-way while they hold more than
 ``itemTreshold = 50`` triangles (MeshOctree.cs:42), and triangles are
 duplicated into every overlapping child (MeshOctree.cs:224-232).  Pointer
-chasing and per-node ``SortedList`` ordering are hostile to TPUs, so the tree
+chasing and per-node ``SortedList`` ordering are hostile to batched array
+programs, so the tree
 is flattened into preorder arrays with *escape indices*: a ray walks the tree
 with a bounded loop, moving to ``i + 1`` (first child) on AABB hit of an
 internal node and to ``skip[i]`` otherwise — no stack, no recursion
 (SURVEY.md §7 "stackless octree traversal").
 
-TPU-first layout decisions:
+Layout decisions:
 
 - **Fixed-size leaf chunks.** Every leaf's triangle list is split into
   chains of ``chunk``-sized preorder slots (same AABB, skip → next slot),
   padded with ``-1`` sentinels.  A batched traversal then tests a dense
-  ``(rays, chunk)`` block per leaf visit — static shapes, VPU-friendly —
+  ``(rays, chunk)`` block per leaf visit — static shapes, dense array ops —
   instead of a data-dependent per-ray loop.
 - **Level-synchronous vectorized build.**  The whole frontier of one depth
   is split at once with NumPy array ops (membership = cheap AABB prefilter,

@@ -1,12 +1,11 @@
 """Per-(cluster, light) shadow clearance — cheap shadows in the lit case.
 
-The r4 frame profile: the shadow query costs more than the primary query
-even after the from-the-light reversal, because occlusion on open scenes is
-mostly ZERO — every shadow ray must *prove clear* by walking every feasible
+Why: the shadow query can cost more than the primary query even after the
+from-the-light reversal, because occlusion on open scenes is mostly ZERO — every shadow ray must *prove clear* by walking every feasible
 cluster inside its segment (IsLightPathObstructed semantics,
 RayTracer.cs:465-502, where the early-out never fires).
 
-This module precomputes, per geometry block ``b`` and positionable light
+This module precomputes, per cluster ``b`` and positionable light
 ``L``, a **clearance distance**
 
     D(b) = min over blocks b' != b that intersect the cone
@@ -37,16 +36,14 @@ Everything here runs IN-GRAPH per frame (one (NCB, NCB) interval sweep,
 ~60M lane-ops at the bench's 7.8k blocks), so moving lights or refitted
 geometry can never use a stale table.
 
-**Measured outcome (v5e, tools/r5lab6 — why this is DEFAULT-OFF)**: on
-the 1M-tri bench terrain only ~0.4% of shadow rays have a provably clear
-far field — a block-level cone from an elevated light to a terrain patch
+**When it pays**: only where most shadow rays have a provably clear far
+field.  On hilly open terrain a cluster-level cone from an elevated light
 sweeps over many other hills that never occlude the actual rays, so
-D(b) < own-entry almost everywhere.  Worse, the few shifted rays scatter
-across cull tiles and the mixed origins balloon the tile origin boxes
-(2.2x slower query), and the per-ray block-id/AABB gathers cost ~140 ms
-per 1M rays (XLA row-gather bound ~140 ns/row).  The technique is exact
-and stays available (cfg.shadow_clearance) for sparse scenes — isolated
-occluders over open floor — at moderate ray counts, where the clear
+D(b) < own-entry almost everywhere; the few shifted rays then scatter
+across cull tiles, their mixed origins widen the tile origin boxes, and
+the per-ray cluster-id/AABB gathers add cost of their own.  The technique
+is exact and stays available (cfg.shadow_clearance, off by default) for
+sparse scenes — isolated occluders over open floor — where the clear
 fraction approaches 1 and tiles shift coherently.
 """
 
@@ -59,25 +56,15 @@ INF = 3.4028235e38
 
 
 def _block_aabbs(cl):
-    """(NCB, 3) block-level AABB min/max from the bake.
-
-    ``cluster_min/max`` are at LEAF granularity; subcluster bakes pack
-    ``subk`` leaves per 128-lane block (accel/clusters.py)."""
-    mn = cl["cluster_min"]
-    mx = cl["cluster_max"]
-    ncb = cl["block"].shape[0]
-    if mn.shape[0] != ncb:
-        sk = mn.shape[0] // ncb
-        mn = mn.reshape(ncb, sk, 3).min(axis=1)
-        mx = mx.reshape(ncb, sk, 3).max(axis=1)
-    return mn, mx
+    """(NCB, 3) per-cluster AABB min/max from the bake."""
+    return cl["cluster_min"], cl["cluster_max"]
 
 
 def _interval_t(b_lo, b_hi, c_lo, c_hi):
     """Conservative [t_lo, t_hi] of { t >= 0 : t*[b_lo,b_hi] ∩ [c_lo,c_hi] }.
 
     One axis of the cone test; the same case analysis as the cull's slab
-    step (kernels/fused.py::_entry_grid) with the block interval playing
+    step (accel/tiled.py::cull_clusters) with the block interval playing
     the direction range."""
     f32 = jnp.float32
     inv_hi = 1.0 / jnp.where(b_hi == 0.0, f32(1.0), b_hi)

@@ -1,6 +1,6 @@
 """Tiled cull + dense chunk testing over Morton clusters (accel/clusters.py).
 
-The TPU-native replacement for per-ray octree descent.  Query pipeline for a
+The XLA replacement for per-ray octree descent.  Query pipeline for a
 ray batch (R,):
 
 1. **Tile summary** — rays are grouped into tiles of ``tile_size``; each tile
@@ -9,7 +9,7 @@ ray batch (R,):
    locality, RayTracer.cs:391-428); secondary rays inherit the coherence of
    the surface they bounced off.
 2. **Conservative cull** — one interval-arithmetic slab test per
-   (tile, cluster) pair: a dense (NT, NC) VPU computation that yields a
+   (tile, cluster) pair: a dense (NT, NC) array computation that yields a
    may-hit mask and a lower bound on the entry distance.  This replaces the
    reference's recursive node walk (MeshOctree.cs:328-353) with one dense op.
 3. **Front-to-back chunks** — each tile sorts its candidate clusters by the
@@ -98,7 +98,7 @@ def _pad_to_tiles(a, tile, fill):
 
 def prepare_tiles(scene, origin, direction, ignore_tri, ignore_mesh, t_max,
                   tile_size: int):
-    """Shared front half of the tiled/Pallas backends: pad the ray batch to
+    """Shared front half of TILED and the walk kernel: pad the ray batch to
     tiles, compute per-tile bounds, and cull clusters.
 
     Returns ``(o, d, itri, imesh, tmax)`` reshaped to (NT, TS[, 3]) and the
@@ -114,7 +114,9 @@ def prepare_tiles(scene, origin, direction, ignore_tri, ignore_mesh, t_max,
     if t_max is None:
         t_max = jnp.full((r,), INF, origin.dtype)
 
-    ts = min(tile_size, max(r, 1))
+    # A batch smaller than one tile pads up to the next power of two (the
+    # walk kernel's blocks are powers of two).
+    ts = min(tile_size, 1 << max(0, (r - 1).bit_length()))
     o = _pad_to_tiles(origin, ts, 0.0)
     d = _pad_to_tiles(direction, ts, 1.0)
     itri = _pad_to_tiles(ignore_tri, ts, -1)

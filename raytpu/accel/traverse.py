@@ -63,9 +63,9 @@ def nearest_hit_brute(scene, origin, direction, ignore_tri=None,
                       block: int = 2048, t_max=None) -> Hit:
     """Dense sweep over all triangles, blocked to bound memory.
 
-    The TPU-natural formulation: every block is a (R, B) elementwise
-    Möller–Trumbore on the VPU with a running strict-min, which preserves
-    the reference's first-in-scan-order tie-breaking.
+    Every block is a dense (R, B) elementwise Möller–Trumbore with a
+    running strict-min, which preserves the reference's first-in-scan-order
+    tie-breaking.
     """
     r = origin.shape[0]
     n = scene.tri_v1.shape[0]
@@ -134,8 +134,8 @@ def nearest_hit_octree(scene, origin, direction, ignore_tri=None,
       update, then jump to ``skip`` (which chains multi-chunk leaves).
 
     This is the classic batched traversal shape (cf. Aila & Laine's
-    while-while) restructured for the VPU: per-ray divergence costs masked
-    lanes, never recompilation or scalar loops.  Exact nearest hit —
+    while-while) restructured as dense array ops: per-ray divergence costs
+    masked lanes, never recompilation or scalar loops.  Exact nearest hit —
     strict-min keeps scan-order tie-breaking within a chunk; across
     duplicated leaves the winning hit is identical.
     """
@@ -242,83 +242,61 @@ def nearest_hit(scene, origin, direction, ignore_tri=None, ignore_mesh=None,
                 cull: bool = True, intersector="auto", block: int = 2048,
                 brute_force_max_tris: int = 4096, cull_tile: int = 256,
                 cull_chunk: int = 1, t_max=None,
-                any_hit: bool = False, cull_pretest: bool = True,
-                cull_recull: int = 6, cull_phase1: int = 0,
-                cull_prepick: int = 0, cull_nbuf: int = 4,
-                with_rows: bool = False) -> Hit:
+                any_hit: bool = False, interpret: bool = False) -> Hit:
     """Dispatch by configured intersector (config.Intersector).
+
+    AUTO: BRUTE for small scenes; with a cluster table, the walk kernel
+    (PALLAS) on a GPU and TILED elsewhere; else OCTREE or BRUTE.  PALLAS
+    raises off the GPU unless ``interpret`` asks for the Pallas
+    interpreter (utils/backend.py).
 
     ``any_hit``: occlusion-query mode — the hit/no-hit boolean (against
     ``t_max``) is exact but the reported hit may not be the nearest, letting
-    the tiled/Pallas backends stop at the first qualifying hit
+    the tiled/walk backends stop at the first qualifying hit
     (IsLightPathObstructed's early-out, RayTracer.cs:465-502).  Only valid
     when the caller uses nothing but ``Hit.hit``.  BRUTE/OCTREE ignore it
     (they return the nearest hit, whose boolean is identical).
-
-    ``with_rows``: return ``(Hit, rows)`` where ``rows`` is the winners'
-    (R, 32) shade-row table resolved in-kernel (PALLAS backend with an
-    ``sblock`` bake; None from every other backend — callers fall back to
-    the XLA tri_shade gather).  Channel 31 is the mesh id as a float
-    VALUE, not tri_shade's bitcast.
     """
     from raytpu.config import Intersector
+    from raytpu.utils.backend import check_kernel_platform, on_gpu
 
     mode = intersector
     if isinstance(mode, str):
-        mode = {
-            "auto": Intersector.AUTO,
-            "brute": Intersector.BRUTE,
-            "octree": Intersector.OCTREE,
-            "pallas": Intersector.PALLAS,
-            "tiled": Intersector.TILED,
-        }[mode]
+        mode = Intersector[mode.upper()]
     if mode == Intersector.AUTO:
-        clusters = getattr(scene, "clusters", None)
         if scene.num_tris <= brute_force_max_tris:
             mode = Intersector.BRUTE
-        elif clusters is not None:
-            # The fused kernel on a real TPU; the exact XLA path elsewhere
-            # (interpret-mode Pallas is far slower than XLA on CPU).
-            from raytpu.utils.backend import on_accelerator
-
-            on_tpu = on_accelerator()
-            aligned = clusters["block"].shape[2] % 128 == 0
-            mode = (
-                Intersector.PALLAS if on_tpu and aligned else Intersector.TILED
-            )
+        elif getattr(scene, "clusters", None) is not None:
+            mode = Intersector.PALLAS if on_gpu() else Intersector.TILED
         elif scene.octree is not None:
             mode = Intersector.OCTREE
         else:
             mode = Intersector.BRUTE
     if mode == Intersector.BRUTE:
-        out = nearest_hit_brute(
+        return nearest_hit_brute(
             scene, origin, direction, ignore_tri, ignore_mesh, cull, block,
             t_max=t_max,
         )
-        return (out, None) if with_rows else out
     if mode == Intersector.OCTREE:
-        out = nearest_hit_octree(
+        return nearest_hit_octree(
             scene, origin, direction, ignore_tri, ignore_mesh, cull,
             t_max=t_max,
         )
-        return (out, None) if with_rows else out
     if mode == Intersector.TILED:
         from raytpu.accel.tiled import nearest_hit_tiled
 
-        out = nearest_hit_tiled(
+        return nearest_hit_tiled(
             scene, origin, direction, ignore_tri, ignore_mesh, cull,
             tile_size=cull_tile, chunk=cull_chunk, t_max=t_max,
             any_hit=any_hit,
         )
-        return (out, None) if with_rows else out
     if mode == Intersector.PALLAS:
-        from raytpu.kernels.fused import nearest_hit_fused
+        from raytpu.kernels.walk import nearest_hit_walk
 
-        return nearest_hit_fused(
+        check_kernel_platform(interpret)
+        return nearest_hit_walk(
             scene, origin, direction, ignore_tri, ignore_mesh, cull,
-            tile_size=cull_tile, chunk_k=cull_chunk, t_max=t_max,
-            any_hit=any_hit, pretest=cull_pretest, recull_every=cull_recull,
-            phase1_trips=cull_phase1, prepick=cull_prepick, nbuf=cull_nbuf,
-            return_rows=with_rows,
+            tile_size=cull_tile, t_max=t_max, any_hit=any_hit,
+            interpret=interpret,
         )
     raise ValueError(mode)

@@ -8,7 +8,7 @@ percent overlay tracks progress (Game1.cs:331-344, :389-416).
 This is the batch framework's equivalent for a terminal:
 
 - the "rasterized preview" is a FAST low-resolution trace (primary rays
-  only, no shadows/recursion — one fused-kernel pass) redrawn after every
+  only, no shadows/recursion — one intersector pass) redrawn after every
   camera move;
 - ``Enter`` runs the full-quality trace progressively (tile batches fill
   the image in, like watching the reference's RenderTarget);

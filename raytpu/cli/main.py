@@ -135,7 +135,7 @@ def _camera(args, aspect: float, scene_cam=None):
 
 
 def _config(args):
-    from raytpu.config import Intersector, RenderConfig, RenderMode
+    from raytpu.config import Intersector, Quantize, RenderConfig, RenderMode
 
     return RenderConfig(
         width=args.width,
@@ -143,13 +143,8 @@ def _config(args):
         max_reflections=args.max_reflections,
         use_multisampling=args.multisample > 0,
         multisample_quality=max(args.multisample, 1),
-        intersector={
-            "auto": Intersector.AUTO,
-            "octree": Intersector.OCTREE,
-            "brute": Intersector.BRUTE,
-            "tiled": Intersector.TILED,
-            "pallas": Intersector.PALLAS,
-        }[args.intersector],
+        intersector=Intersector[args.intersector.upper()],
+        quantize=Quantize[args.quantize.upper()],
         render_mode={
             "shaded": RenderMode.SHADED,
             "normals": RenderMode.NORMALS,
@@ -396,6 +391,10 @@ def _add_common(p):
                    help="adaptive supersampling quality (0 = off)")
     p.add_argument("--intersector", default="auto",
                    choices=("auto", "octree", "brute", "tiled", "pallas"))
+    p.add_argument("--quantize", default="final",
+                   choices=("none", "final", "bounce"),
+                   help="byte quantization: every bounce (the reference's "
+                        "Color returns), the final write, or none (HDR)")
     p.add_argument("--camera", type=float, nargs=3, default=None,
                    help="default (0, 16, 32), the reference's (Game1.cs:111);"
                         " a .toml scene's camera is used unless overridden")
@@ -422,6 +421,9 @@ def _add_common(p):
 
 
 def main(argv=None) -> int:
+    from raytpu.utils.cache import setup_compile_cache
+
+    setup_compile_cache()
     ap = argparse.ArgumentParser(prog="raytpu")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -436,7 +438,9 @@ def main(argv=None) -> int:
     pa.add_argument("--frames", type=int, default=60)
     pa.add_argument("--fps", type=float, default=30.0,
                     help="reference default (Game1.cs:194)")
-    pa.add_argument("--codec", default="MJPG", choices=("MJPG", "DIB "))
+    pa.add_argument("--codec", default="DIB ", choices=("DIB ", "MJPG"),
+                    help='"DIB " uncompressed (default) or "MJPG" (needs '
+                         'PIL)')
     pa.add_argument("--frame-dir", default=None)
     pa.add_argument("--resume", action="store_true",
                     help="reuse frame PNGs already in --frame-dir")

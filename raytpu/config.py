@@ -65,7 +65,7 @@ class Intersector(enum.IntEnum):
     AUTO = 0
     BRUTE = 1  # dense ray-tile x triangle-block sweep (small scenes)
     OCTREE = 2  # stackless flattened-octree traversal (pure JAX while_loop)
-    PALLAS = 3  # Pallas fused cull+intersection kernels
+    PALLAS = 3  # TILED's cull + the walk kernel (kernels/walk.py; GPU)
     TILED = 4  # tiled cluster cull + front-to-back dense chunks (XLA)
 
 
@@ -76,7 +76,7 @@ class RenderConfig:
     Mirrors the tracer properties of the reference engine
     (``RayTracer.cs:19-41``): ``MaxReflections``, ``TextureFiltering``,
     ``AddressMode``, ``UseMultisampling``, ``MultisampleQuality`` — plus
-    TPU-specific batching knobs that replace the scanline dispenser
+    batching knobs that replace the scanline dispenser
     (``RayTracer.cs:48-52``).
     """
 
@@ -97,45 +97,20 @@ class RenderConfig:
     # Diagnostic render channels (RenderMode docstring).
     render_mode: RenderMode = RenderMode.SHADED
     # Rays per wavefront tile; the image is rendered tile-by-tile so that
-    # refraction doubling (2^depth slots) stays within HBM.
+    # refraction doubling (2^depth slots) stays within device memory.
     tile_pixels: int = 16384
     # Triangle block size for the brute-force intersector sweep.
     tri_block: int = 2048
     # Intersector switches to cluster culling above this triangle count
     # when intersector == AUTO.
     brute_force_max_tris: int = 4096
-    # Rays per cull tile and clusters per dense chunk (accel/tiled.py).
-    # 256 rays (16x16-pixel blocks) balances cone tightness against VPU
-    # shape efficiency on v5e (measured optimum at 1M tris).
+    # Rays per cull tile (16x16-pixel blocks) and clusters per TILED chunk
+    # (accel/tiled.py).
     cull_tile: int = 256
     cull_chunk: int = 1
-    # Fused-kernel walk controls (kernels/fused.py).  ``cull_pretest``: a
-    # per-ray lane-major slab test skips a picked cluster's whole
-    # Möller–Trumbore pass when no unresolved ray can improve on it
-    # (exact).  ``cull_recull``: every N walk trips the entry grid is
-    # rebuilt from the unresolved beam only (0 = never).  ``cull_phase1``:
-    # two-phase compaction — phase 1 walks every tile on this trip budget,
-    # unresolved rays are compacted into fresh narrow tiles and finished by
-    # an unbudgeted phase 2 (0 = single phase).  All three are exact; they
-    # only change how much conservative overtesting the lockstep tile pays.
-    # Measured on the v5e bench terrain (tools/kernsweep.py, r3): the
-    # median-split walk already visits only ~7 clusters/tile on average and
-    # rays resolve near the end of their tile's walk, so no picked cluster
-    # is skippable while it matters — pretest (+47%) and recull (+9%) cost
-    # more than they save there.  OFF by default; flip them for workloads
-    # with deep occlusion or wide tiles where the walk badly overshoots the
-    # per-ray need.
-    cull_pretest: bool = False
-    cull_recull: int = 0
-    cull_phase1: int = 0
-    # Pick-then-walk kernel (kernels/fused.py::_prepick_kernel): > 0 = max
-    # front-to-back picks per tile, extracted into SMEM before a lean
-    # DMA-pipelined test loop (``cull_nbuf`` buffers deep).  Exact: tiles
-    # whose feasible-cluster count overflows the pick budget fall back to
-    # a classic-walk rescue pass under lax.cond.  0 = classic interleaved
-    # walk.
-    cull_prepick: int = 0
-    cull_nbuf: int = 4
+    # Run the PALLAS walk kernel in the Pallas interpreter instead of
+    # compiling it for the GPU (CPU tests; kernels/walk.py).
+    interpret: bool = False
     # Dual-branch transparent scenes (a material both reflective AND
     # transparent) double the wavefront per level; with compaction the
     # children are stably permuted live-first between levels so dead slots
@@ -153,19 +128,14 @@ class RenderConfig:
     # (core/intersect.py cull="reverse"); only FP rounding at edge-grazing
     # occluders and zero-measure endpoint coincidences can differ.
     shadow_from_light: bool = True
-    # Per-block shadow clearance (accel/shadowcull.py): precompute, per
+    # Per-cluster shadow clearance (accel/shadowcull.py): precompute, per
     # frame and light, the nearest distance at which geometry OUTSIDE a
-    # fragment's own block can occlude it; reversed spot queries then
+    # fragment's own cluster can occlude it; reversed spot queries then
     # start at light + t_min*dir (directional queries cap t_max at the
-    # own-block exit when nothing lies beyond).  Exact — every possible
-    # occluder is provably inside the searched segment.  DEFAULT OFF:
-    # on the 1M-tri bench terrain only 0.4% of rays have a provably
-    # clear far field (block-level cones are much fatter than rays over
-    # hilly ground), the scattered shifted origins poison their cull
-    # tiles, and the per-ray block-id/AABB gathers cost ~140 ms per 1M
-    # rays on v5e (XLA row-gather bound) — measured net-negative
-    # (tools/r5lab6, docs/PERF.md r5).  Worth enabling for sparse scenes
-    # (isolated objects over a floor) at moderate ray counts.
+    # own-cluster exit when nothing lies beyond).  Exact — every possible
+    # occluder is provably inside the searched segment.  Off by default:
+    # it pays only where most shadow rays have a provably clear far field
+    # (isolated objects over a floor), not on hilly open terrain.
     shadow_clearance: bool = False
     # Differentiable mode: the discrete nearest-hit result is
     # stop-gradiented and (u, v, t) are recomputed from the hit triangle so
@@ -192,7 +162,6 @@ class RenderConfig:
     # image exact but backpropagates through a sigmoid of the barycentric
     # edge distance with this temperature (raytpu.diff).
     soft_tau: float = 0.0
-    dtype: str = "float32"
 
     def to_json(self) -> str:
         d = dataclasses.asdict(self)

@@ -40,6 +40,32 @@ def moller_trumbore(origin, direction, v1, e1, e2):
     return hit, u, v, d
 
 
+def moller_trumbore_xyz(origin, direction, v1, e1, e2):
+    """:func:`moller_trumbore` with every vector given as an (x, y, z)
+    tuple of broadcastable arrays — the same formula, in the same order,
+    for kernels whose blocks cannot carry a trailing axis of 3
+    (kernels/walk.py).  Returns ``(hit, u, v, d)``."""
+
+    def cross3(a, b):
+        return (a[1] * b[2] - a[2] * b[1],
+                a[2] * b[0] - a[0] * b[2],
+                a[0] * b[1] - a[1] * b[0])
+
+    def dot3(a, b):
+        return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+    t = tuple(o - p for o, p in zip(origin, v1))
+    p = cross3(direction, e2)
+    q = cross3(t, e1)
+    det = dot3(p, e1)
+    inv_det = 1.0 / det
+    d = dot3(q, e2) * inv_det
+    u = dot3(p, t) * inv_det
+    v = dot3(q, direction) * inv_det
+    hit = (u >= 0.0) & (v >= 0.0) & (d >= 0.0) & (u + v <= 1.0)
+    return hit, u, v, d
+
+
 def moller_trumbore_safe(origin, direction, v1, e1, e2, eps: float = 1e-20):
     """Möller–Trumbore with a determinant guard, for the differentiable
     recompute path (render/wavefront.py, cfg.differentiable).
@@ -78,10 +104,15 @@ def facing_gate(surface_normal, direction, cull):
     ``cull="reverse"`` mirrors it for queries cast along the REVERSED ray
     (render/wavefront.py shadow-from-light): accept iff the triangle would
     face the original (un-reversed) direction.  One definition for every
-    XLA backend so the mirror can never drift."""
+    backend, on (..., 3) arrays or (x, y, z) tuples (kernels/walk.py), so
+    the mirror can never drift."""
+    if isinstance(surface_normal, tuple):
+        facing = sum(n * d for n, d in zip(surface_normal, direction))
+    else:
+        facing = dot(surface_normal, direction)
     if cull == "reverse":
-        return dot(surface_normal, direction) >= 0.0
-    return dot(surface_normal, direction) <= 0.0
+        return facing >= 0.0
+    return facing <= 0.0
 
 
 def ray_aabb(origin, direction, box_min, box_max):
@@ -120,55 +151,3 @@ def ray_aabb(origin, direction, box_min, box_max):
 def barycentric_point(v1, e1, e2, u, v):
     """Object-space hit point ``v1 + e1*u + e2*v`` (MeshOctree.cs:310-322)."""
     return v1 + e1 * u[..., None] + e2 * v[..., None]
-
-
-def det_space_accept(det, udet, vdet, tdet, cull):
-    """Möller–Trumbore acceptance in det-multiplied space (no reciprocal).
-
-    The ONE definition shared by the fused Pallas kernel and the ring's
-    dense fallback (dist/bigscene.py) so their accept semantics can never
-    diverge.  ``cull``: backface culling accepts det < 0 only (sign(det) ==
-    sign(dot(snormal, d)) under the accel/clusters.py packing), so the
-    det-multiplied comparisons flip once, statically.  ``cull="reverse"``
-    accepts det > 0 only — the exact mirror, for queries cast along the
-    REVERSED ray (render/wavefront.py shadow-from-light): a triangle front-
-    facing the original direction is back-facing the reversed one.  The
-    no-cull branch folds the sign; ``ps > 0`` excludes det == 0, which the
-    reference's guardless division also never accepts (u/v become inf/NaN
-    and fail — RayExtensions.cs:13-75).
-    """
-    import jax.numpy as jnp
-
-    if cull == "reverse":
-        return ((udet >= 0.0) & (vdet >= 0.0) & (tdet >= 0.0)
-                & (udet + vdet <= det) & (det > 0.0))
-    if cull:
-        return ((udet <= 0.0) & (vdet <= 0.0) & (tdet <= 0.0)
-                & (udet + vdet >= det) & (det < 0.0))
-    s = jnp.where(det < 0.0, jnp.float32(-1.0), jnp.float32(1.0))
-    us, vs, ts_, ps = udet * s, vdet * s, tdet * s, det * s
-    return ((us >= 0.0) & (vs >= 0.0) & (ts_ >= 0.0)
-            & (us + vs <= ps) & (ps > 0.0))
-
-
-def det_space_accept_within(det, udet, vdet, tdet, t_max, cull):
-    """``det_space_accept`` AND hit distance strictly below ``t_max``.
-
-    Still division-free: ``tdet/det < t_max`` becomes a det-sign-aware
-    product comparison.  This is the whole acceptance an occlusion
-    (any-hit) query needs — no per-pair distance, no winner, just "is
-    there a qualifying hit inside the bound" (IsLightPathObstructed,
-    RayTracer.cs:465-502).  Shares ``det_space_accept`` so the occlusion
-    and nearest-hit accept semantics can never diverge.
-    """
-    import jax.numpy as jnp
-
-    ok = det_space_accept(det, udet, vdet, tdet, cull)
-    if cull == "reverse":
-        return ok & (tdet < t_max * det)
-    if cull:
-        # Accepted pairs have det < 0 and tdet <= 0: tdet/det < t_max
-        # flips once under the negative det.
-        return ok & (tdet > t_max * det)
-    s = jnp.where(det < 0.0, jnp.float32(-1.0), jnp.float32(1.0))
-    return ok & (tdet * s < t_max * (det * s))

@@ -7,9 +7,9 @@ any FlatScene field group (diff/params.py).
 
 Distributed form: rays are sharded over the device mesh exactly like the
 forward renderer (dist/render.py); each device differentiates its own ray
-block and the gradient all-reduce (``psum`` over the mesh axes) rides ICI —
-XLA schedules it against the remaining backward work, which is the
-overlapped-reduction design from SURVEY.md §2.
+block and the gradient all-reduce (``psum`` over the mesh axes) runs as a
+collective that XLA schedules against the remaining backward work, which is
+the overlapped-reduction design from SURVEY.md §2.
 
 Octree caveat: moving vertices invalidates the host-built octree.  Use
 Intersector.BRUTE while fitting geometry (exact for any motion), or refit in
@@ -118,18 +118,17 @@ def make_fit_step(scene: FlatScene, cfg: RenderConfig,
             mesh=mesh,
             in_specs=(P(), P(), P(), spec, spec, spec, spec),
             out_specs=(P(), P(), P()),
+            check_vma=False,  # the walk kernel (see dist/render.py)
         )
         def _impl(scene_, params, opt_state, origin, direction, target,
                   valid):
-            from raytpu.dist.mesh import hierarchical_pmean, pvary_tree
+            from raytpu.dist.mesh import hierarchical_pmean
 
-            scene_var = pvary_tree(scene_, axes)
-            params_var = pvary_tree(params, axes)
             loss, grads = jax.value_and_grad(render_loss, argnums=2)(
-                scene_var, cfg, params_var, origin, direction, target, valid
+                scene_, cfg, params, origin, direction, target, valid
             )
-            # Gradient all-reduce over ICI(+DCN), overlapped with remaining
-            # backward work by XLA; equal shard sizes → psum-mean is the
+            # Gradient all-reduce, overlapped with remaining backward work
+            # by XLA; equal shard sizes → psum-mean is the
             # global gradient of the global mean loss.  On a 2-D
             # ("hosts", "chips") mesh this is the hierarchical
             # reduce_scatter-over-chips + psum-over-hosts form
@@ -177,22 +176,13 @@ def rebuild_accel(scene: FlatScene, params: Dict,
     mids = np.asarray(scene.tri_mesh)
     valid = np.asarray(scene.tri_valid)
     v = np.stack([v1, v1 + e1, v1 + e2], axis=1)
-    # LEAF granularity, not block lanes: subcluster bakes pack subk leaves
-    # per 128-lane block, so block.shape[2] is the lane width, not the
-    # cluster size (accel/clusters.py as_device_arrays docstring).
     cl = scene.clusters
     csize = cl["tri_v1"].shape[0] // cl["cluster_min"].shape[0]
     from raytpu.accel.clusters import build_clusters
 
     ct = build_clusters(v, cluster_size=csize, valid=valid,
                         pad_clusters_to=pad_clusters_to)
-    # Mirror the existing bake's optional tables exactly: adding a key the
-    # scene did not have would change the pytree structure and retrace the
-    # compiled fit step (the rebuild_every contract).
-    newcl = ct.as_device_arrays(v1, e1, e2, sn, mids,
-                                build_gblock="gblock" in cl,
-                                build_tblock="tblock" in cl,
-                                build_plane="sub_plane" in cl)
+    newcl = ct.as_device_arrays(v1, e1, e2, sn, mids)
     return scene.replace(clusters=newcl)
 
 

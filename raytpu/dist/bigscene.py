@@ -1,38 +1,35 @@
-"""Ring-sharded intersection — scenes larger than one chip's HBM.
+"""Ring-sharded intersection — scenes larger than one device's memory.
 
 The SURVEY §7 stretch component: when the cluster tables cannot replicate
-(BASELINE config 5 scaled up), the TPU-native answer is NOT an out-of-core
-pager but a **ring**: partition the spatial cluster order into contiguous
-shards, one per device, and rotate RAY BLOCKS around the mesh with
-``ppermute`` — each hop intersects the visiting block against the device's
-resident shard with the block's running bests as per-ray search bounds, and
-a strict-min merge carries the winner along.  After ``N`` hops every ray
-has visited every shard and is back on its home device with the exact
-global nearest hit.
+(BASELINE config 5 scaled up), the answer is NOT an out-of-core pager but a
+**ring**: partition the spatial cluster order into contiguous shards, one
+per device, and rotate RAY BLOCKS around the mesh with ``ppermute`` — each
+hop intersects the visiting block against the device's resident shard with
+the block's running bests as per-ray search bounds, and a strict-min merge
+carries the winner along.  After ``N`` hops every ray has visited every
+shard and is back on its home device with the exact global nearest hit.
 
 Why this shape:
 
-- Geometry never moves: each device DMAs only its own shard from its own
-  HBM, every hop.  What rides ICI is the ray state (~48 B/ray) — orders of
+- Geometry never moves: each device reads only its own shard, every hop.
+  What moves between devices is the ray state (~48 B/ray) — orders of
   magnitude smaller than the geometry, and ``ppermute`` overlaps with the
   next hop's intersection work under XLA's scheduler.
-- The in-shard query is the fused Pallas kernel on TPU — the running best
-  enters as ``t_max``, so later shards' walks settle early wherever earlier
-  shards already found close hits (the front-to-back early-out now spans
-  chips).  Off-accelerator (and for unaligned cluster sizes) the exact
-  fallback is a dense det-space sweep straight off the packed block
-  (``_brute_from_block`` — the SAME acceptance, via
-  core/intersect.det_space_accept).
+- The in-shard query is the single-device one on the shard's own cluster
+  table: the walk kernel on a GPU, TILED elsewhere (utils/backend.py rules).
+  The running best enters as ``t_max``, so later shards' walks settle early
+  wherever earlier shards already found close hits (the front-to-back
+  early-out now spans devices).
 - Contiguous shards of the median-split cluster order are spatially
   compact, so per-shard root caps stay tight.
 
 Tie semantics: hits improve strictly (``t < best``), so an exact cross-
 shard distance tie resolves to the shard a ray visits FIRST (its home-ring
-order) — rotation-dependent, unlike the single-chip walk's entry-order
+order) — rotation-dependent, unlike the single-device walk's entry-order
 tie-break.  Real scenes hit this with probability ~0; documented deviation.
 
 Shading tables are a separate concern: only the per-ray winner is shaded,
-so the >HBM renderer shards ``tri_shade`` the same way
+so the >memory renderer shards ``tri_shade`` the same way
 (``shard_scene_shade``) and resolves winner rows with one more ring pass
 (``gather_rows_ring``); ``render_image_ring`` runs the full unmodified
 wavefront on top of both.
@@ -59,104 +56,99 @@ class _ShardScene(NamedTuple):
     clusters: dict
 
 
+#: Per-shard cluster-table keys (accel/clusters.py), stacked over devices.
+_SHARD_KEYS = ("cluster_min", "cluster_max", "root_min", "root_max",
+               "tri_id", "tri_v1", "tri_e1", "tri_e2", "tri_snormal",
+               "tri_mesh")
+
+
 def shard_scene_clusters(flat, mesh: Mesh) -> dict:
     """Split ``flat.clusters`` into per-device shards, sharded over ``mesh``.
 
-    Returns a dict of stacked arrays with leading dim ``mesh.size`` placed
-    so device i holds ONLY shard i (leading-axis sharding — the >HBM
-    property).  Winner triangle ids need no offset fix-up: block row 16
-    already carries GLOBAL ids.
-
-    - ``block``  (N, NCs, 24, C)  packed geometry rows of the shard
-    - ``aabb``   (N, 6, 8, NC8s)  the shard's cull table (+BIG padding)
-    - ``root``   (N, 1, 8)        per-shard root box + the global margin
+    Device i holds ONLY clusters [i*NCs, (i+1)*NCs) of the cluster order
+    (leading-axis sharding — the >memory property), as a cluster table of
+    its own: AABBs, triangle rows, and a root box over the shard.  Padding
+    clusters are infeasible (±big bounds) with empty slots (``tri_id``
+    -1).  Winner triangle ids need no fix-up: ``tri_id`` is GLOBAL.
     """
-    cl = flat.clusters
+    cl = {k: np.asarray(v) for k, v in flat.clusters.items()}
     n = mesh.size
-    cmin = np.asarray(cl["cluster_min"])
-    cmax = np.asarray(cl["cluster_max"])
-    block = np.asarray(cl["block"])
-    nc, _, csize = block.shape
-    if cmin.shape[0] != nc:
-        # Subcluster bake: cluster_min/max are at LEAF granularity while
-        # blocks pack subk leaves per 128 lanes — the ring's in-shard cull
-        # runs at block granularity, so group-reduce the leaf AABBs.
-        sk = cmin.shape[0] // nc
-        cmin = cmin.reshape(nc, sk, 3).min(axis=1)
-        cmax = cmax.reshape(nc, sk, 3).max(axis=1)
+    nc = cl["cluster_min"].shape[0]
+    csize = cl["tri_v1"].shape[0] // nc
     ncs = -(-nc // n)
     big = np.float32(3.4028235e38)
-    margin = float(np.asarray(cl["root"])[0, 6])
 
-    blocks, aabbs, roots = [], [], []
+    parts = {k: [] for k in _SHARD_KEYS}
     for i in range(n):
-        lo, hi = i * ncs, min((i + 1) * ncs, nc)
-        k = hi - lo
-        b = np.zeros((ncs, 24, csize), np.float32)
-        if k > 0:
-            b[:k] = block[lo:hi]
-            # Padding blocks are all-zero => det == 0 => never accepted;
-            # their AABB rows stay zero, never consulted (padding columns
-            # are infeasible in the cull below).
-        blocks.append(b)
-        nc8 = max(128, ((-(-ncs // 8) + 127) // 128) * 128)
-        aabb = np.full((6, 8 * nc8), big, np.float32)
-        if k > 0:
-            aabb[0:3, :k] = cmin[lo:hi].T
-            aabb[3:6, :k] = cmax[lo:hi].T
-        aabbs.append(aabb.reshape(6, 8, nc8))
-        root = np.zeros((1, 8), np.float32)
-        if k > 0:
-            root[0, 0:3] = cmin[lo:hi].min(axis=0)
-            root[0, 3:6] = cmax[lo:hi].max(axis=0)
-        root[0, 6] = margin
-        roots.append(root)
+        lo, hi = min(i * ncs, nc), min((i + 1) * ncs, nc)
+        pad = ncs - (hi - lo)
+        cmin = np.concatenate([cl["cluster_min"][lo:hi],
+                               np.full((pad, 3), big, np.float32)])
+        cmax = np.concatenate([cl["cluster_max"][lo:hi],
+                               np.full((pad, 3), -big, np.float32)])
+        parts["cluster_min"].append(cmin)
+        parts["cluster_max"].append(cmax)
+        real = hi > lo
+        parts["root_min"].append(cmin[:hi - lo].min(0) if real
+                                 else np.zeros(3, np.float32))
+        parts["root_max"].append(cmax[:hi - lo].max(0) if real
+                                 else np.zeros(3, np.float32))
+        for k in ("tri_id", "tri_mesh", "tri_v1", "tri_e1", "tri_e2",
+                  "tri_snormal"):
+            a = cl[k][lo * csize:hi * csize]
+            fill = -1 if a.dtype == np.int32 else 0
+            parts[k].append(np.concatenate(
+                [a, np.full((pad * csize,) + a.shape[1:], fill, a.dtype)]))
 
     axis = mesh.axis_names[0]
     shard = NamedSharding(mesh, P(axis))
-    put = lambda a: jax.device_put(jnp.asarray(np.stack(a)), shard)
-    return {
-        "block": put(blocks),
-        "aabb": put(aabbs),
-        "root": put(roots),
-        "n_shards": n,
-        "csize": csize,
-        # Global slot count: the fused in-shard path's f32 winner-id
-        # extraction needs GLOBAL ids < 2^24 (ids in block row 16 are
-        # global) — checked in nearest_hit_ring.
-        "global_slots": nc * csize,
-    }
+    out = {k: jax.device_put(jnp.asarray(np.stack(v)), shard)
+           for k, v in parts.items()}
+    out["n_shards"] = n
+    return out
 
 
 def nearest_hit_ring(shards: dict, origin, direction, mesh: Mesh,
                      ignore_tri=None, ignore_mesh=None, cull: bool = True,
                      tile_size: int = 256, t_max=None,
                      intersector: str = "auto",
-                     any_hit: bool = False) -> Hit:
+                     any_hit: bool = False, interpret: bool = False) -> Hit:
     """Exact nearest hit over ring-sharded geometry (module docstring).
 
     ``origin``/``direction``: (R, 3) world rays (replicated or host
     arrays); result order matches input order.
 
+    ``intersector``: the in-shard query — "pallas" (the walk kernel),
+    "tiled", or "auto" (the walk kernel on a GPU, TILED elsewhere).
+    "pallas" raises off the GPU unless ``interpret`` is set.
+
     ``any_hit``: occlusion-query mode — only the ``hit`` boolean (and the
-    bounded ``t``) are meaningful (accel/traverse.nearest_hit docstring);
-    the in-shard queries then skip all winner bookkeeping.  Every shard is
-    still visited (the ring is lockstep), but shards after the first hit
-    settle immediately (the running best enters as ``t_max``; a found
-    occlusion drives it to 0).
+    bounded ``t``) are meaningful (accel/traverse.nearest_hit docstring).
+    Every shard is still visited (the ring is lockstep), but shards after
+    the first hit settle immediately (the running best enters as
+    ``t_max``; a found occlusion drives it to 0).
     """
+    from raytpu.utils.backend import check_kernel_platform, on_gpu
+
     assert len(mesh.axis_names) == 1, "ring sharding wants a 1-D mesh"
     axis = mesh.axis_names[0]
     n = mesh.size
     f32, i32 = jnp.float32, jnp.int32
+
+    if intersector == "auto":
+        intersector = "pallas" if on_gpu() else "tiled"
+    if intersector == "pallas":
+        check_kernel_platform(interpret)
+    elif intersector != "tiled":
+        raise ValueError(f"ring in-shard intersector {intersector!r}")
 
     r = origin.shape[0]
     chunk = -(-r // n)
     pad = chunk * n - r
     o = jnp.asarray(origin, f32)
     d = jnp.asarray(direction, f32)
-    # Static: with no user ignores, the in-shard kernel elides the per-pair
-    # id comparisons entirely (has_ignore=False).
+    # Static: with no user ignores, the in-shard walk elides the per-pair
+    # id comparisons entirely.
     has_ignore = ignore_tri is not None or ignore_mesh is not None
     itri = (jnp.full((r,), -1, i32) if ignore_tri is None
             else jnp.asarray(ignore_tri, i32))
@@ -171,34 +163,19 @@ def nearest_hit_ring(shards: dict, origin, direction, mesh: Mesh,
         imesh = jnp.concatenate([imesh, jnp.full((pad,), -1, i32)])
         tmax = jnp.concatenate([tmax, jnp.zeros((pad,), f32)])
 
-    from raytpu.utils.backend import on_accelerator
-
-    on_hw = on_accelerator()
-    use_fused = intersector == "pallas" or (intersector == "auto" and on_hw)
-    if on_hw and shards["csize"] % 128 != 0:
-        # Mosaic DMA slices must be 128-lane aligned; the dense sweep off
-        # the packed block is the exact fallback (NOT nearest_hit_tiled,
-        # which would need per-shard triangle SoA tables we don't ship).
-        use_fused = False
-    if not any_hit and shards.get("global_slots", 0) >= (1 << 24):
-        # The fused uvt winner-id extraction needs f32-exact GLOBAL ids
-        # (occlusion queries never extract ids — no limit there).
-        use_fused = False
-
     spec = P(axis)
+    tables = tuple(shards[k] for k in _SHARD_KEYS)
 
     @partial(
         jax.shard_map, mesh=mesh,
-        in_specs=(spec, spec, spec, spec, spec, spec, spec, spec),
+        in_specs=(spec,) * (len(tables) + 5),
         out_specs=(spec,) * 5,
-        check_vma=False,  # pallas_call under shard_map (see dist/render.py)
+        check_vma=False,  # the walk kernel (see dist/render.py)
     )
-    def ring(blk, aabb, root, o_, d_, it_, im_, tm_):
+    def ring(*args):
         local = _ShardScene(clusters={
-            "block": blk[0],
-            "aabb": aabb[0],
-            "root": root[0],
-        })
+            k: a[0] for k, a in zip(_SHARD_KEYS, args[:len(tables)])})
+        o_, d_, it_, im_, tm_ = args[len(tables):]
         best = Hit(
             hit=jnp.zeros(o_.shape[:1], bool),
             t=jnp.full(o_.shape[:1], INF, f32),
@@ -206,13 +183,14 @@ def nearest_hit_ring(shards: dict, origin, direction, mesh: Mesh,
             v=jnp.zeros(o_.shape[:1], f32),
             tri=jnp.full(o_.shape[:1], -1, i32),
         )
-        state = (o_, d_, it_, im_, tm_, best)
         perm = [(i, (i + 1) % n) for i in range(n)]
-        for _ in range(n):
+
+        def hop(_, state):
             o2, d2, it2, im2, tm2, best = state
             cap = jnp.minimum(tm2, best.t)
-            h = _local_query(local, o2, d2, it2, im2, cap, cull,
-                             tile_size, use_fused, has_ignore, any_hit)
+            h = _local_query(local, o2, d2, it2 if has_ignore else None,
+                             im2 if has_ignore else None, cap, cull,
+                             tile_size, intersector, any_hit, interpret)
             upd = h.hit & (h.t < best.t)
             best = Hit(
                 hit=best.hit | upd,
@@ -221,18 +199,18 @@ def nearest_hit_ring(shards: dict, origin, direction, mesh: Mesh,
                 v=jnp.where(upd, h.v, best.v),
                 tri=jnp.where(upd, h.tri, best.tri),
             )
-            state = jax.tree.map(
+            return jax.tree.map(
                 lambda x: jax.lax.ppermute(x, axis, perm),
                 (o2, d2, it2, im2, tm2, best),
             )
-        # n rotations = identity: every block is home with its answer.
-        best = state[5]
+
+        # One traced hop, run n times: n rotations = identity, so every
+        # block is home with its answer.
+        best = jax.lax.fori_loop(0, n, hop,
+                                 (o_, d_, it_, im_, tm_, best))[5]
         return best.hit, best.t, best.u, best.v, best.tri
 
-    hit, t, u, v, tri = ring(
-        shards["block"], shards["aabb"], shards["root"],
-        o, d, itri, imesh, tmax,
-    )
+    hit, t, u, v, tri = ring(*tables, o, d, itri, imesh, tmax)
     flat = lambda a: a.reshape(n * chunk)[:r]
     t = flat(t)
     hit = flat(hit)
@@ -240,78 +218,23 @@ def nearest_hit_ring(shards: dict, origin, direction, mesh: Mesh,
                tri=flat(tri))
 
 
-def _local_query(local, o, d, itri, imesh, cap, cull, tile_size, use_fused,
-                 has_ignore, any_hit=False):
-    if use_fused:
-        from raytpu.kernels.fused import nearest_hit_fused
+def _local_query(local, o, d, itri, imesh, cap, cull, tile_size,
+                 intersector, any_hit, interpret):
+    """The in-shard query on the shard's own cluster table."""
+    if intersector == "pallas":
+        from raytpu.kernels.walk import nearest_hit_walk
 
-        return nearest_hit_fused(local, o, d,
-                                 ignore_tri=itri if has_ignore else None,
-                                 ignore_mesh=imesh if has_ignore else None,
-                                 cull=cull,
-                                 tile_size=tile_size, t_max=cap,
-                                 any_hit=any_hit)
-    # XLA fallback: a dense front-to-back chunk scan needs the per-cluster
-    # triangle arrays; reconstruct the dict views the tiled path reads from
-    # the packed block is overkill — run the brute Möller–Trumbore over the
-    # shard's packed geometry instead (exact, VPU-shaped).
-    return _brute_from_block(local.clusters, o, d, itri, imesh, cap, cull,
-                             has_ignore)
+        return nearest_hit_walk(local, o, d, itri, imesh, cull,
+                                tile_size=tile_size, t_max=cap,
+                                any_hit=any_hit, interpret=interpret)
+    from raytpu.accel.tiled import nearest_hit_tiled
 
-
-def _brute_from_block(cl, o, d, itri, imesh, cap, cull, has_ignore=True):
-    """Dense exact sweep straight off the packed (NCs, 24, C) block.
-
-    Evaluates the same det-space Möller–Trumbore the kernel runs (rows 0-17
-    of the block — see accel/clusters.py), blocked per cluster via scan.
-    """
-    block = cl["block"]
-    r = o.shape[0]
-    f32, i32 = jnp.float32, jnp.int32
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    wx = dy * oz - dz * oy
-    wy = dz * ox - dx * oz
-    wz = dx * oy - dy * ox
-
-    def body(carry, g):
-        best_t, best_u, best_v, best_tri = carry
-        row = lambda k: g[k:k + 1, :]
-        det = dx * row(0) + dy * row(1) + dz * row(2)
-        udet = (wx * row(6) + wy * row(7) + wz * row(8)
-                + dx * row(3) + dy * row(4) + dz * row(5))
-        vdet = (wx * row(12) + wy * row(13) + wz * row(14)
-                + dx * row(9) + dy * row(10) + dz * row(11))
-        tdet = row(15) - (ox * row(0) + oy * row(1) + oz * row(2))
-        from raytpu.core.intersect import det_space_accept
-
-        ok = det_space_accept(det, udet, vdet, tdet, cull)
-        tid = jax.lax.bitcast_convert_type(g[16:17, :], i32)
-        if has_ignore:
-            tmesh = jax.lax.bitcast_convert_type(g[17:18, :], i32)
-            ok &= (tid != itri[:, None]) & (tmesh != imesh[:, None])
-        dist = jnp.where(ok, tdet / det, INF)
-        j = jnp.argmin(dist, axis=1)
-        rr = jnp.arange(r)
-        cand = dist[rr, j]
-        upd = cand < best_t
-        safe_det = det[rr, j]
-        safe_det = jnp.where(safe_det == 0.0, f32(1.0), safe_det)
-        best_u = jnp.where(upd, udet[rr, j] / safe_det, best_u)
-        best_v = jnp.where(upd, vdet[rr, j] / safe_det, best_v)
-        best_tri = jnp.where(upd, tid[0, j], best_tri)
-        best_t = jnp.where(upd, cand, best_t)
-        return (best_t, best_u, best_v, best_tri), None
-
-    init = (cap, jnp.zeros((r,), f32), jnp.zeros((r,), f32),
-            jnp.full((r,), -1, i32))
-    (bt, bu, bv, btri), _ = jax.lax.scan(body, init, block)
-    hit = btri >= 0
-    return Hit(hit=hit, t=jnp.where(hit, bt, INF), u=bu, v=bv, tri=btri)
+    return nearest_hit_tiled(local, o, d, itri, imesh, cull,
+                             tile_size=tile_size, t_max=cap, any_hit=any_hit)
 
 
 # ---------------------------------------------------------------------------
-# >HBM rendering: ring-sharded shade rows + the full wavefront on the ring.
+# >memory rendering: ring-sharded shade rows + the full wavefront on the ring.
 # ---------------------------------------------------------------------------
 
 
@@ -372,8 +295,8 @@ def _ring_gather_bwd_impl(ct, ids_p, mesh: Mesh, ts: int):
     Each device watches all ray chunks go by (same ring rotation as the
     forward) and scatter-adds the cotangents of ids it owns into its local
     (Ts, K) table — the exact adjoint of the forward's "contribute the
-    rows you own".  What rides ICI is ids + cotangent rows, never the
-    table: the >HBM property holds in reverse mode too."""
+    rows you own".  What moves between devices is ids + cotangent rows,
+    never the table: the >HBM property holds in reverse mode too."""
     axis = mesh.axis_names[0]
     n = mesh.size
     f32 = jnp.float32
@@ -425,8 +348,8 @@ def gather_rows_ring(shade: dict, ids, mesh: Mesh,
 
     The winner-resolution pass: the (R,) ``ids`` (original triangle ids;
     negative = none → zero row) rotate around the ring with a (R, 32)
-    accumulator; each device contributes the rows it owns.  What rides ICI
-    is ids + rows (~132 B/ray/hop) — the shade table itself never moves.
+    accumulator; each device contributes the rows it owns.  What moves
+    between devices is ids + rows (~132 B/ray/hop) — the shade table itself never moves.
 
     ``differentiable``: route through the custom-VJP twin whose backward
     ppermutes cotangent rows back to their owner shards and scatter-adds
@@ -470,16 +393,26 @@ def strip_for_ring(flat, strip_textures: bool = True):
     return flat.replace(**none_fields)
 
 
+def _ring_intersector(cfg) -> str:
+    """The ring's in-shard query named by ``cfg.intersector``: PALLAS and
+    TILED pick theirs, every other choice follows the AUTO rule."""
+    from raytpu.config import Intersector
+
+    return {Intersector.PALLAS: "pallas",
+            Intersector.TILED: "tiled"}.get(cfg.intersector, "auto")
+
+
 def make_ring_backends(shards: dict, shade: dict, mesh: Mesh,
                        tile_size: int = 256, intersector: str = "auto",
-                       differentiable: bool = False):
+                       differentiable: bool = False,
+                       interpret: bool = False):
     """(query, gather) callables for render/wavefront.py injection.
 
     ``query`` is ``nearest_hit_ring`` over the geometry shards; ``gather``
     resolves packed shade rows with ``gather_rows_ring``.  With these, the
     UNMODIFIED wavefront level/shading code (reflections, refraction,
     shadows with transparent-occluder attenuation, textures) renders
-    scenes whose triangle tables exceed one device's HBM.
+    scenes whose triangle tables exceed one device's memory.
 
     ``differentiable``: the gather takes the custom-VJP ring path so
     reverse-mode flows into the sharded shade table (the query is always
@@ -490,7 +423,8 @@ def make_ring_backends(shards: dict, shade: dict, mesh: Mesh,
         return nearest_hit_ring(
             shards, origin, direction, mesh, ignore_tri=ignore_tri,
             ignore_mesh=ignore_mesh, cull=cull, tile_size=tile_size,
-            t_max=t_max, intersector=intersector, any_hit=any_hit)
+            t_max=t_max, intersector=intersector, any_hit=any_hit,
+            interpret=interpret)
 
     def gather(scene, tri):
         from raytpu.render.wavefront import shade_row_views
@@ -539,7 +473,9 @@ def render_rays_ring(flat, cfg, origin, direction, mesh: Mesh,
                 "shard_scene_textures(original_flat, mesh)")
     query, gather = make_ring_backends(shards, shade, mesh,
                                        tile_size=cfg.cull_tile,
-                                       differentiable=cfg.differentiable)
+                                       intersector=_ring_intersector(cfg),
+                                       differentiable=cfg.differentiable,
+                                       interpret=cfg.interpret)
     from raytpu.render.wavefront import trace_colors
 
     return trace_colors(flat, cfg, origin, direction, query=query,
@@ -673,7 +609,9 @@ def make_ring_fit_step(flat, cfg, mesh: Mesh, optimizer,
     def loss_fn(params, origin, direction, target):
         sh = dict(shade, shade=ring_shade_from_params(shade_const, params))
         query, gather = make_ring_backends(
-            shards, sh, mesh, tile_size=cfg.cull_tile, differentiable=True)
+            shards, sh, mesh, tile_size=cfg.cull_tile,
+            intersector=_ring_intersector(cfg), differentiable=True,
+            interpret=cfg.interpret)
         colors = trace_colors(flat, cfg, origin, direction, query=query,
                               gather=gather, texel_fetch=texel_fetch)
         return jnp.mean((colors - target) ** 2)
@@ -700,8 +638,8 @@ def shard_scene_textures(flat, mesh: Mesh) -> Optional[dict]:
     partitioned by flat index range — the same leading-axis sharding as
     the shade rows, resolved by the same ring pass.  The reference's
     content is heavily textured (RayTraceProjectContent.contentproj:
-    90-226); this closes the last replicated big table of the >HBM path
-    (r4 verdict missing #3).  Returns None for textureless scenes."""
+    90-226); this closes the last replicated big table of the >HBM path.
+    Returns None for textureless scenes."""
     if flat.textures is None:
         return None
     n = mesh.size

@@ -5,7 +5,7 @@ the Join barrier (RayTracer.cs:117-120), and a crashed animation could only
 be salvaged manually by re-stitching the frame PNGs already on disk
 (Game1.cs:156-161, :192-210).
 
-The TPU-native story exploits that rendering is stateless and tile/frame
+The design exploits that rendering is stateless and tile/frame
 units are re-renderable: recovery = re-dispatch.  :func:`render_units`
 drives a list of independent work units (tiles or frames) through a render
 callable, detects failures (exceptions from the runtime — device resets,

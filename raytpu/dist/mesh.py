@@ -1,18 +1,17 @@
 """Device-mesh construction and scene replication.
 
 The reference's only parallelism is a shared-memory scanline pool with an
-atomic dispenser (RayTracer.cs:48-52, :81-120).  The TPU-native equivalent is
-data parallelism over the ray dimension on a ``jax.sharding.Mesh``:
+atomic dispenser (RayTracer.cs:48-52, :81-120).  The equivalent here is data
+parallelism over the ray dimension on a ``jax.sharding.Mesh``:
 
-- axis ``"rays"`` spans every chip (ICI within a slice, DCN across hosts);
-  each device owns a contiguous ray block — the moral successor of "each
-  thread owns a scanline", with the XLA collective replacing Thread.Join
-  (RayTracer.cs:117-120).
+- axis ``"rays"`` spans every device; each device owns a contiguous ray
+  block — the moral successor of "each thread owns a scanline", with the
+  XLA collective replacing Thread.Join (RayTracer.cs:117-120).
 - the scene (triangles, octree, materials, textures, lights) is replicated —
   the analog of all threads reading the same shared octree.
 
-For multi-host topologies prefer ``make_mesh(axes=("hosts", "chips"))`` so
-gradient reductions can ride ICI first and cross DCN once
+For multi-host topologies ``make_mesh(axes=("hosts", "chips"))`` lets
+gradient reductions run within a host first and cross hosts once
 (`reduce_scatter` over chips, `psum` over hosts — see raytpu.diff.fit).
 """
 
@@ -24,16 +23,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-
-def pvary_tree(tree, axes):
-    """Promote every array in ``tree`` to device-varying over ``axes``
-    (no data movement — a shard_map type annotation)."""
-    if hasattr(jax.lax, "pcast"):
-        f = lambda x: jax.lax.pcast(x, axes, to="varying")
-    else:
-        f = lambda x: jax.lax.pvary(x, axes)
-    return jax.tree.map(f, tree)
 
 
 def make_mesh(devices: Optional[Sequence] = None,
@@ -63,11 +52,12 @@ def hierarchical_pmean(tree, mesh: Mesh):
 
     1-D mesh: one flat ``pmean``.  2-D ``("hosts", "chips")``: the
     hierarchical all-reduce the mesh docstring promises — ``psum_scatter``
-    over the chip axis (each chip owns 1/chips of the sum, traffic rides
-    ICI), ``psum`` of the small shard across hosts (one DCN crossing at
-    1/chips the bytes of a flat all-reduce), then ``all_gather`` back over
-    chips.  Leaves whose leading dim does not tile over the chip axis fall
-    back to a flat psum (the scatter needs equal shards).
+    over the chip axis (each chip owns 1/chips of the sum, traffic stays
+    within the host), ``psum`` of the small shard across hosts (one
+    crossing at 1/chips the bytes of a flat all-reduce), then
+    ``all_gather`` back over chips.  Leaves whose leading dim does not
+    tile over the chip axis fall back to a flat psum (the scatter needs
+    equal shards).
     """
     axes = mesh.axis_names
     if len(axes) == 1:
@@ -80,14 +70,14 @@ def hierarchical_pmean(tree, mesh: Mesh):
         if x.ndim >= 1 and x.shape[0] >= nchips and x.shape[0] % nchips == 0:
             y = jax.lax.psum_scatter(x, chips_ax, scatter_dimension=0,
                                      tiled=True)
-            # The DCN stage carries 1/chips of the gradient bytes — the
-            # whole point of the hierarchy.
+            # The cross-host stage carries 1/chips of the gradient bytes —
+            # the whole point of the hierarchy.
             y = jax.lax.psum(y, hosts_ax)
             # Gather the chip shards back.  Expressed as a one-hot psum
             # rather than all_gather because shard_map's varying-axis type
             # system cannot infer replication through all_gather, while
-            # psum's output is invariant by construction.  Same ICI ring
-            # traffic class; the DCN saving above is untouched.
+            # psum's output is invariant by construction.  Same in-host
+            # traffic class; the cross-host saving above is untouched.
             idx = jax.lax.axis_index(chips_ax)
             full = jnp.zeros((nchips,) + y.shape, y.dtype)
             full = jax.lax.dynamic_update_index_in_dim(full, y, idx, 0)
@@ -110,8 +100,8 @@ def replicate_scene(scene, mesh: Mesh):
 
     Explicit placement keeps XLA from inserting per-step broadcasts of the
     triangle/texture tables (the "shared scene" of RayTracer's thread pool).
-    Scenes larger than HBM would instead shard the triangle table and rotate
-    partitions (ring traversal) — a stretch component, see SURVEY.md §7.
+    Scenes larger than device memory instead shard the triangle table and
+    rotate partitions (ring traversal, dist/bigscene.py).
     """
     rep = NamedSharding(mesh, P())
     return jax.tree.map(lambda x: jax.device_put(x, rep), scene)

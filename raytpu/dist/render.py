@@ -51,18 +51,12 @@ def render_rays_sharded(scene: FlatScene, cfg: RenderConfig, origin, direction,
         mesh=mesh,
         in_specs=(P(), spec, spec),
         out_specs=spec,
-        # pallas_call (the fused intersector) does not annotate varying
-        # mesh axes on its out_shapes yet; skip the vma check so the
-        # Pallas backend runs under shard_map.
+        # The walk kernel's pallas_call does not carry varying-axis types
+        # through its body, so shard_maps that may run it skip the check.
         check_vma=False,
     )
     def shard_trace(scene_rep, o, d):
-        # The replicated scene enters the shard unvarying; promote it to
-        # device-varying so gathers inside scan/while bodies see consistent
-        # manual-axes types (pvary is free — no data movement).
-        from raytpu.dist.mesh import pvary_tree
-
-        return render_rays(pvary_tree(scene_rep, mesh.axis_names), cfg, o, d)
+        return render_rays(scene_rep, cfg, o, d)
 
     colors = shard_trace(scene, origin, direction)
     return colors[:n]
@@ -136,13 +130,10 @@ def render_image_multisampled_sharded(scene: FlatScene, cfg: RenderConfig,
         mesh=mesh,
         in_specs=(P(), spec, spec, spec),
         out_specs=spec,
-        check_vma=False,  # same pallas_call caveat as render_rays_sharded
+        check_vma=False,  # the walk kernel (see render_rays_sharded)
     )
     def shard_ss(scene_rep, x, y, a):
-        from raytpu.dist.mesh import pvary_tree as pv
-
-        return supersample_colors(pv(scene_rep, mesh.axis_names), cfg,
-                                  camera, x, y, alive=a)
+        return supersample_colors(scene_rep, cfg, camera, x, y, alive=a)
 
     colors = shard_ss(scene, cx, cy, alive)[:n]
     return colors.reshape(cfg.height, cfg.width, 3)

@@ -7,10 +7,10 @@ AVI at 30 fps (Game1.cs:192-210, VideoStream.AddFrame,
 VideoStream.cs:344-365).  avifil32 is Windows-only; this module writes the
 RIFF/AVI container directly, with two codecs:
 
-- ``"MJPG"`` (default): frames JPEG-encoded via PIL — small files, playable
-  everywhere.
-- ``"DIB "``: uncompressed bottom-up BGR24, bit-equivalent to what
-  ``AVIStreamWrite`` received from the locked bitmaps.
+- ``"DIB "`` (default): uncompressed bottom-up BGR24, bit-equivalent to
+  what ``AVIStreamWrite`` received from the locked bitmaps.
+- ``"MJPG"``: frames JPEG-encoded via PIL (optional dependency) — small
+  files, playable everywhere.
 
 A C++ implementation of the same muxer lives in ``native/`` (built via
 ctypes) for the zero-copy high-throughput path; this pure-Python one is the
@@ -30,6 +30,19 @@ def _fourcc(s: str) -> bytes:
     return s.encode("ascii")
 
 
+def _jpeg(arr: np.ndarray, quality: int) -> bytes:
+    """JPEG-encode one (H, W, 3) uint8 frame for the MJPG codec."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            'the MJPG codec needs PIL (Pillow) to encode JPEG frames; '
+            'use codec="DIB " (uncompressed) without it') from e
+    buf = _io.BytesIO()
+    Image.fromarray(arr).save(buf, "JPEG", quality=quality)
+    return buf.getvalue()
+
+
 class AviWriter:
     """Streaming AVI writer (AviManager + VideoStream analog).
 
@@ -40,7 +53,7 @@ class AviWriter:
                 w.add_frame(frame)
     """
 
-    def __init__(self, path: str, fps: float = 30.0, codec: str = "MJPG",
+    def __init__(self, path: str, fps: float = 30.0, codec: str = "DIB ",
                  quality: int = 90):
         if codec not in ("MJPG", "DIB "):
             raise ValueError(f"unsupported codec {codec!r}")
@@ -84,11 +97,7 @@ class AviWriter:
         elif self._wh != (w, h):
             raise ValueError("frame size changed mid-stream")
         if self.codec == "MJPG":
-            from PIL import Image
-
-            buf = _io.BytesIO()
-            Image.fromarray(arr).save(buf, "JPEG", quality=self.quality)
-            self._frames.append(buf.getvalue())
+            self._frames.append(_jpeg(arr, self.quality))
         else:
             # Bottom-up BGR24 rows padded to 4 bytes (the DIB layout
             # VideoStream.AddFrame fed to AVIStreamWrite).
@@ -276,7 +285,7 @@ class NativeAviWriter:
     """
 
     def __init__(self, path: str, width: int, height: int, fps: float = 30.0,
-                 codec: str = "MJPG", quality: int = 90):
+                 codec: str = "DIB ", quality: int = 90):
         if codec not in ("MJPG", "DIB "):
             raise ValueError(f"unsupported codec {codec!r}")
         lib = _native_lib()
@@ -302,11 +311,7 @@ class NativeAviWriter:
                 self._h, np.ascontiguousarray(arr).tobytes()
             )
         else:
-            from PIL import Image
-
-            buf = _io.BytesIO()
-            Image.fromarray(arr).save(buf, "JPEG", quality=self.quality)
-            data = buf.getvalue()
+            data = _jpeg(arr, self.quality)
             rc = self._lib.avimux_add_frame_jpeg(self._h, data, len(data))
         if rc != 0:
             raise OSError(f"avimux add_frame failed ({rc})")
@@ -334,7 +339,7 @@ class NativeAviWriter:
 
 
 def open_avi(path: str, width: int, height: int, fps: float = 30.0,
-             codec: str = "MJPG", quality: int = 90):
+             codec: str = "DIB ", quality: int = 90):
     """Best AVI writer available: native streaming muxer, else pure Python."""
     try:
         return NativeAviWriter(path, width, height, fps=fps, codec=codec,
@@ -344,7 +349,7 @@ def open_avi(path: str, width: int, height: int, fps: float = 30.0,
 
 
 def compile_video(frame_paths, out_path: str, fps: float = 30.0,
-                  codec: str = "MJPG") -> None:
+                  codec: str = "DIB ") -> None:
     """Stitch image files into an AVI (Game1.compileVideo, Game1.cs:192-210)."""
     from raytpu.io.image import read_image
 

@@ -170,8 +170,11 @@ def _shade_inputs(iscene: InstancedScene, cfg: RenderConfig,
 
     w = iscene.worlds[safe_inst]
     it = iscene.inv_t[safe_inst]
-    frag_w = jnp.einsum("ri,rij->rj", g["frag_obj"], w[:, :3, :3]) + w[:, 3, :3]
-    normal_w = normalize(jnp.einsum("ri,rij->rj", g["n_obj"], it))
+    hi = jax.lax.Precision.HIGHEST
+    frag_w = jnp.einsum("ri,rij->rj", g["frag_obj"], w[:, :3, :3],
+                        precision=hi) + w[:, 3, :3]
+    normal_w = normalize(jnp.einsum("ri,rij->rj", g["n_obj"], it,
+                                    precision=hi))
     return g, frag_w, normal_w
 
 

@@ -7,7 +7,7 @@ length deviates from the 4-corner average length by more than ``TRESHOLD =
 0.5`` (RayTracer.cs:288-306), returning the byte-quantized corner average
 (RayTracer.cs:309).
 
-TPU formulation: the recursion is *level-synchronous*.  Level ``l`` holds all
+Array formulation: the recursion is *level-synchronous*.  Level ``l`` holds all
 quadrants at subdivision depth ``l`` (``4^l`` static slots per pixel, with an
 ``alive`` mask — masked quadrants trace but are discarded, which keeps shapes
 static under jit).  Each level is one batched trace of ``4·Q_l`` corner rays;

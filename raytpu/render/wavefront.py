@@ -8,7 +8,7 @@ materials, a refraction ray (RayTracer.cs:656-699), combined as
     color       = lerp(refraction, colorVector, alpha)        # if transparent
 
 Both combines are *linear* in the child colors, so the recursion maps to a
-TPU-friendly two-pass wavefront over static-shaped ray levels:
+two-pass wavefront over static-shaped ray levels:
 
 1. **Forward expansion** — level ``l`` holds the rays at recursion depth
    ``l`` (`R0 * 2^l` slots when the scene has transparent materials —
@@ -65,19 +65,11 @@ class RaySet(NamedTuple):
     alive: jnp.ndarray
 
 
-def shade_row_views(s, mesh_as_value: bool = False):
+def shade_row_views(s):
     """Field views of packed (…, 32)-float shade rows (FlatScene.tri_shade).
 
     The ONE layout definition: used by the replicated gather below and by
-    the ring-sharded row resolution of dist/bigscene.py.
-
-    ``mesh_as_value``: channel 31 carries the mesh id as a float VALUE
-    (the kernel-resolved row path — its bf16-limb extraction cannot carry
-    bitcast int patterns) instead of tri_shade's int32 bitcast."""
-    if mesh_as_value:
-        views = shade_row_views(s)
-        views["mesh"] = s[..., 31].astype(jnp.int32)
-        return views
+    the ring-sharded row resolution of dist/bigscene.py."""
     return {
         "v1": s[..., 0:3],
         "e1": s[..., 3:6],
@@ -101,8 +93,8 @@ def _gather_rows_geo(table, tri):
     Forward-identical to ``table[tri]``.  Backward: the cotangent of the
     non-geometry channels (normals/uv/color/mesh — scene constants under
     GEOMETRY fits) is dropped and the scatter-add runs on a packed (T, 12)
-    table (v1 e1 e2 | snormal) instead of (T, 32) — the scatter is the
-    single biggest backward line item (docs/PERF.md r4).  Only used when
+    table (v1 e1 e2 | snormal) instead of (T, 32), moving 12/32 of the
+    scatter's bytes.  Only used when
     cfg.grad_channels == "geometry" (exactness contract in config.py)."""
     return table[tri]
 
@@ -129,8 +121,7 @@ _gather_rows_geo.defvjp(_gather_rows_geo_fwd, _gather_rows_geo_bwd)
 def _gather_tri(scene: FlatScene, tri, grad_channels: str = "all"):
     if scene.tri_shade is not None:
         # One packed (32,)-float row per ray (FlatScene.tri_shade) instead
-        # of twelve separate gathers — gathers dominate the XLA-side cost
-        # of shading at 1M rays on TPU.
+        # of twelve separate gathers.
         if grad_channels == "geometry":
             return shade_row_views(_gather_rows_geo(scene.tri_shade, tri))
         return shade_row_views(scene.tri_shade[tri])
@@ -185,24 +176,15 @@ def _default_query(cfg: RenderConfig):
     and reuse every line of the level/shading logic."""
 
     def query(scene, origin, direction, *, ignore_tri=None,
-              ignore_mesh=None, t_max=None, any_hit=False, cull=True,
-              with_rows=False):
+              ignore_mesh=None, t_max=None, any_hit=False, cull=True):
         return nearest_hit(
             scene, origin, direction, ignore_tri=ignore_tri,
             ignore_mesh=ignore_mesh, cull=cull,
             intersector=cfg.intersector, block=cfg.tri_block,
             brute_force_max_tris=cfg.brute_force_max_tris,
             cull_tile=cfg.cull_tile, cull_chunk=cfg.cull_chunk,
-            cull_pretest=cfg.cull_pretest, cull_recull=cfg.cull_recull,
-            cull_phase1=cfg.cull_phase1, cull_prepick=cfg.cull_prepick,
-            cull_nbuf=cfg.cull_nbuf, t_max=t_max, any_hit=any_hit,
-            with_rows=with_rows)
+            t_max=t_max, any_hit=any_hit, interpret=cfg.interpret)
 
-    # Capability flag: trace_colors asks this backend for in-kernel
-    # winner shade rows (the XLA row gather is ~half the device frame at
-    # 1M rays — tools/r5lab16).  Injected backends (ring, instanced)
-    # lack the attribute and take the gather fallback.
-    query.supports_rows = True
     return query
 
 
@@ -232,13 +214,12 @@ def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
         lit = valid & jnp.any(contrib != 0.0, axis=-1)
         # Shadow visibility is discrete — detach the query inputs in
         # differentiable mode (outputs are stop-gradient'ed below; the
-        # Pallas kernel has no JVP rule).
+        # walk kernel has no JVP rule).
         sg = jax.lax.stop_gradient if cfg.differentiable else (lambda x: x)
         # Shadow-from-light reversal (opaque scenes, positionable lights):
         # cast the segment test from the LIGHT toward the fragment.  All
         # rays of the query then share one origin — tile beams become thin
-        # cones and the conservative cull prunes far more clusters
-        # (measured 1.9x on the v5e bench terrain, docs/PERF.md r4).  The
+        # cones and the conservative cull prunes far more clusters.  The
         # accepted-triangle set is identical: same segment, same t-bound,
         # mirrored backface culling (cull="reverse"); only FP rounding at
         # edge-grazing occluders can flip.  Opaque-only because the
@@ -251,7 +232,7 @@ def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
             and i < len(scene.light_kinds)
             and scene.light_kinds[i] == lights_mod.SPOT
         )
-        # Per-block shadow clearance (accel/shadowcull.py, r5): every
+        # Per-cluster shadow clearance (accel/shadowcull.py): every
         # possible occluder of a fragment provably lies at light-distance
         # >= min(D(own block), the ray's own-block AABB entry), so the
         # searched segment shrinks to the fragment's neighborhood on lit
@@ -276,9 +257,9 @@ def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
                     clr, clr["tri_block"], hit_tri, origin_q, dir_q)
                 t_en = jnp.maximum(t_en, 0.0)
                 # BINARY shift: all-or-nothing per ray.  Blending
-                # (tmin = min(D, entry)) measured SLOWER — rays shifted
-                # by varying partial distances land mixed origins in one
-                # cull tile and the origin box balloons (tools/r5lab4).
+                # (tmin = min(D, entry)) would shift rays by varying
+                # partial distances, landing mixed origins in one cull
+                # tile and widening its origin box.
                 # Shift only rays whose whole far field is provably
                 # clear; tiles of block-coherent fragments then agree.
                 clear_ray = dvals[b_id] >= t_en
@@ -357,9 +338,9 @@ def _light_result(scene: FlatScene, cfg: RenderConfig, frag_pos, normal,
             )
         else:
             # Opaque scene: every occluder blocks fully — skip the
-            # occluder-material gathers (TPU row gathers are expensive, and
-            # the any_hit query's reported triangle is not meaningful
-            # anyway — accel/traverse.nearest_hit docstring).
+            # occluder-material gathers (the any_hit query's reported
+            # triangle is not meaningful anyway — accel/traverse.nearest_hit
+            # docstring).
             light_amount = jnp.where(obstructed, 1.0, 0.0)
         total = total + contrib * (1.0 - light_amount)[..., None]
     return total
@@ -390,37 +371,25 @@ def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
     # In differentiable mode the discrete query is detached (its outputs
     # are stop-gradient'ed below and (u, v, t) recomputed), so detach its
     # INPUTS too: AD then never enters the intersector at all — required
-    # for the Pallas kernel (no JVP rule) and pure savings elsewhere.
+    # for the walk kernel (no JVP rule) and pure savings elsewhere.
     sg = jax.lax.stop_gradient if cfg.differentiable else (lambda x: x)
-    # Hard (non-differentiable) renders ask the backend for the winners'
-    # shade rows resolved IN-KERNEL (sblock bake): the XLA tri_shade
-    # gather is ~half the device frame at 1M rays (tools/r5lab16).
-    # Differentiable renders keep the XLA gather — its VJP carries the
-    # parameter gradients.
-    want_rows = not cfg.differentiable and getattr(
-        query, "supports_rows", False)
-    qargs = dict(ignore_tri=rays.ignore_tri, ignore_mesh=rays.ignore_mesh,
-                 cull=True)
-    qin = (
+    hit = query(
         jax.tree.map(sg, scene) if cfg.differentiable else scene,
         sg(rays.origin),
         # Dead lanes become non-finite: they can never hit and the tiled
         # backends exclude them from cull-tile bounds (accel/tiled.py).
         sg(jnp.where(rays.alive[..., None], rays.direction,
                      jnp.float32(jnp.nan))),
+        ignore_tri=rays.ignore_tri, ignore_mesh=rays.ignore_mesh, cull=True,
     )
-    krows = None
-    if want_rows:
-        hit, krows = query(*qin, with_rows=True, **qargs)
-    else:
-        hit = query(*qin, **qargs)
     soft_vis = None
     if cfg.differentiable:
         hit = jax.tree.map(jax.lax.stop_gradient, hit)
     mask = hit.hit & rays.alive
     tri = hit.tri
-    td = (shade_row_views(krows, mesh_as_value=True)
-          if krows is not None else gather(scene, tri))
+    # Misses carry tri == -1 and gather the wrap row: finite values that
+    # the mask below discards, so no NaN reaches shading.
+    td = gather(scene, tri)
     if cfg.differentiable:
         # Detach the discrete search, then recompute (u, v, t) from the hit
         # triangle so gradients flow regardless of intersector backend.  The
@@ -428,8 +397,7 @@ def _trace_level(scene: FlatScene, cfg: RenderConfig, rays: RaySet,
         # forward values (see core/intersect.py::moller_trumbore_safe).
         # The triangle data comes from the SAME gathered row as shading
         # (td) — a second differentiable gather of tri_v1/e1/e2 would cost
-        # a second full scatter-add in the backward (the gather VJP is the
-        # single biggest backward line item, docs/PERF.md r4).  Misses
+        # a second full scatter-add in the backward).  Misses
         # gather the wrap row instead of row 0 — masked below either way,
         # and the determinant guard keeps them NaN-free.
         u_d, v_d, t_d = intersect.moller_trumbore_safe(
@@ -553,16 +521,9 @@ def debug_mode_colors(scene: FlatScene, cfg: RenderConfig, origin, direction):
         cur_ref=jnp.ones(origin.shape[:1], jnp.float32),
         alive=jnp.ones(origin.shape[:1], bool),
     )
-    hit = nearest_hit(
+    hit = _default_query(cfg)(
         scene, rays.origin, rays.direction, ignore_tri=rays.ignore_tri,
-        ignore_mesh=rays.ignore_mesh, cull=True,
-        intersector=cfg.intersector, block=cfg.tri_block,
-        brute_force_max_tris=cfg.brute_force_max_tris,
-        cull_tile=cfg.cull_tile, cull_chunk=cfg.cull_chunk,
-        cull_pretest=cfg.cull_pretest, cull_recull=cfg.cull_recull,
-        cull_phase1=cfg.cull_phase1, cull_prepick=cfg.cull_prepick,
-        cull_nbuf=cfg.cull_nbuf,
-    )
+        ignore_mesh=rays.ignore_mesh, cull=True)
     td = _gather_tri(scene, hit.tri)
     mat = scene.mesh_material[td["mesh"]]
     if cfg.render_mode == RenderMode.NORMALS:
@@ -635,8 +596,6 @@ def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
                     lambda x, y: jnp.concatenate([x, y]), refl_rays, refr_rays
                 )
                 if cfg.compact_wavefront:
-                    from raytpu.kernels.fused import _compact_order
-
                     order = _compact_order(~rays.alive)
                     take = lambda a: jnp.take(a, order, axis=0)
                     rays = jax.tree.map(take, rays)
@@ -689,6 +648,21 @@ def trace_colors(scene: FlatScene, cfg: RenderConfig, origin, direction,
     return color
 
 
+def _compact_order(resolved):
+    """Stable permutation putting unresolved rays first.
+
+    ``order[j]`` = source index of sorted slot ``j``.  Cumsum-based stable
+    partition — O(R) instead of a full device sort."""
+    i32 = jnp.int32
+    res = resolved.astype(i32)
+    n_unres = jnp.sum(1 - res)
+    pos_u = jnp.cumsum(1 - res) - 1
+    pos_r = n_unres + jnp.cumsum(res) - 1
+    dest = jnp.where(resolved, pos_r, pos_u)
+    return jnp.zeros_like(dest).at[dest].set(
+        jnp.arange(dest.shape[0], dtype=i32))
+
+
 def _pad_rays(o, d, tile: int):
     n = o.shape[0]
     pad = (-n) % tile
@@ -721,7 +695,7 @@ def block_order_perm(width: int, height: int, block: int):
     blocks give each tile a compact direction cone (and compact secondary-
     ray footprints), where raster runs of whole scanlines would give a
     degenerate wide one.  Pure permutation — per-ray results are identical,
-    this only regroups them (the TPU analog of the reference handing out
+    this only regroups them (the analog of the reference handing out
     scanlines, RayTracer.cs:49-52, except the unit is a tile).
     """
     import numpy as np

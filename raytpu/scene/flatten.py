@@ -35,10 +35,7 @@ def flatten_scene(scene: Scene, max_lights: int = 4,
                   build_octree: bool = True, leaf_threshold: int = 50,
                   max_depth: int = 12, build_clusters: bool = True,
                   cluster_size: int = 128,
-                  cluster_method: str = "median",
-                  build_gblock: bool = False,
-                  build_tblock: bool = True,
-                  build_plane: bool = True) -> FlatScene:
+                  cluster_method: str = "median") -> FlatScene:
     tri_v = []
     tri_n = []
     tri_uv = []
@@ -210,17 +207,7 @@ def flatten_scene(scene: Scene, max_lights: int = 4,
             else None
         ),
         clusters=(
-            clusters.as_device_arrays(v[:, 0], e1, e2, snormal, mesh_idx,
-                                      build_gblock=build_gblock,
-                                      # The tlane kernel's bake (+32/24 of
-                                      # the block HBM); pass False for
-                                      # scenes near the HBM limit that
-                                      # render through row-layout paths.
-                                      build_tblock=build_tblock,
-                                      build_plane=build_plane,
-                                      # In-kernel winner-row resolve bake
-                                      # (cluster-ordered shade rows).
-                                      shade_rows=shade)
+            clusters.as_device_arrays(v[:, 0], e1, e2, snormal, mesh_idx)
             if clusters is not None
             else None
         ),

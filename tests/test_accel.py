@@ -175,290 +175,11 @@ class TestTiledVsBrute:
         assert not bool(ht.hit[2]) and not bool(ht.hit[5])
 
 
-def _z_quad_stack_scene(n_quads: int):
-    """``n_quads`` unit quads facing +z at z = 0..n-1, one cluster each.
-
-    Morton codes of centroids that differ only in z are monotone in z, so
-    cluster index == quad index (cluster_size=2 == triangles per quad).
-    """
-    from raytpu.scene.types import Material, Scene, SceneObject
-    from raytpu.scene.types import Mesh
-
-    tris = []
-    for i in range(n_quads):
-        z = float(i)
-        # Winding chosen so snormal = normalize(cross(e2, e1)) = +z: a ray
-        # travelling -z passes the backface cull (dot(n, d) <= 0).
-        tris.append([[-1, -1, z], [-1, 1, z], [1, -1, z]])
-        tris.append([[1, 1, z], [1, -1, z], [-1, 1, z]])
-    mesh = Mesh(vertices=np.asarray(tris, np.float32),
-                material=Material(reflectiveness=0.0))
-    return Scene(objects=[SceneObject(meshes=[mesh])])
-
-
-class TestFusedKernel:
-    """Fully-fused Pallas kernel (kernels/fused.py, interpret mode) vs brute.
-
-    The fused kernel does cull + front-to-back argmin walk + intersection all
-    in VMEM with no candidate cap, so there is no overflow case to test —
-    exactness must hold for every tile composition.
-    """
-
-    @pytest.fixture(scope="class")
-    def flat(self):
-        return sphere_and_plane_scene().flatten(
-            build_octree=False, cluster_size=16
-        )
-
-    def _rays(self, rng, n):
-        o = rng.uniform(-20, 20, size=(n, 3)).astype(np.float32)
-        o[:, 1] = np.abs(o[:, 1]) + 0.5
-        d = rng.normal(size=(n, 3)).astype(np.float32)
-        d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        return jnp.asarray(o), jnp.asarray(d)
-
-    @pytest.mark.parametrize("cull", [True, False])
-    def test_match_brute(self, flat, rng, cull):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(rng, 128)
-        hb = nearest_hit_brute(flat, o, d, cull=cull, block=128)
-        hf = nearest_hit_fused(flat, o, d, cull=cull, tile_size=32,
-                               interpret=True)
-        np.testing.assert_array_equal(np.asarray(hb.hit), np.asarray(hf.hit))
-        m = np.asarray(hb.hit)
-        np.testing.assert_allclose(np.asarray(hb.t)[m], np.asarray(hf.t)[m],
-                                   rtol=1e-5)
-        np.testing.assert_array_equal(np.asarray(hb.tri)[m],
-                                      np.asarray(hf.tri)[m])
-
-    def test_front_to_back_early_settle_exact(self):
-        """Quad stack: nearest cluster has the HIGHEST Morton index; the
-        argmin walk must pick it first and settle in one iteration with the
-        exact nearest hit (no index-order bias)."""
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        flat = _z_quad_stack_scene(6).flatten(
-            build_octree=False, cluster_size=2
-        )
-        o = jnp.asarray(np.tile([[0.2, 0.1, 10.0]], (8, 1)), jnp.float32)
-        d = jnp.asarray(np.tile([[0.0, 0.0, -1.0]], (8, 1)), jnp.float32)
-        hf = nearest_hit_fused(flat, o, d, tile_size=8, interpret=True)
-        hb = nearest_hit_brute(flat, o, d, block=16)
-        assert np.asarray(hf.hit).all()
-        np.testing.assert_allclose(np.asarray(hf.t), 5.0, rtol=1e-6)
-        np.testing.assert_array_equal(np.asarray(hf.tri), np.asarray(hb.tri))
-
-    def test_any_hit_occlusion_with_tmax(self, flat, rng):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(rng, 64)
-        t_max = jnp.full((64,), 18.0, jnp.float32)
-        hb = nearest_hit_brute(flat, o, d, block=128)
-        hf = nearest_hit_fused(flat, o, d, tile_size=32, t_max=t_max,
-                               any_hit=True, interpret=True)
-        occluded_ref = np.asarray(hb.hit) & (np.asarray(hb.t) < 18.0)
-        np.testing.assert_array_equal(np.asarray(hf.hit), occluded_ref)
-
-    def test_ignore_tri_and_nonfinite_rays(self, flat, rng):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(rng, 32)
-        o = o.at[3, 0].set(jnp.nan)
-        hb = nearest_hit_brute(flat, o, d, block=128)
-        itri = jnp.where(jnp.arange(32) % 2 == 0, hb.tri, -1).astype(jnp.int32)
-        hb2 = nearest_hit_brute(flat, o, d, ignore_tri=itri, block=128)
-        hf = nearest_hit_fused(flat, o, d, ignore_tri=itri, tile_size=32,
-                               interpret=True)
-        assert not bool(hf.hit[3])
-        np.testing.assert_array_equal(np.asarray(hb2.hit), np.asarray(hf.hit))
-        m = np.asarray(hb2.hit)
-        np.testing.assert_array_equal(np.asarray(hb2.tri)[m],
-                                      np.asarray(hf.tri)[m])
-
-
-class TestFusedKernelFlags:
-    """Every fused-kernel walk control must be exact (kernels/fused.py):
-    ``pretest`` (per-ray slab skip), ``recull_every`` (unresolved-beam
-    entry-grid rebuild), ``chunk_k`` (clusters per trip), ``phase1_trips``
-    (two-phase compaction) and ``mxu`` are all pure walk-shape knobs — hit
-    booleans, distances and winning triangles must match brute force for
-    every combination, including under ``any_hit`` and ignore ids."""
-
-    @pytest.fixture(scope="class")
-    def flat(self):
-        return sphere_and_plane_scene().flatten(
-            build_octree=False, cluster_size=16, build_gblock=True
-        )
-
-    def _rays(self, rng, n, seed=11):
-        # Own the seed: the session rng's state depends on test order, and
-        # an unlucky draw can push the brute-vs-triple-product formula
-        # rounding past any fixed tolerance on near-origin hits.
-        rng = np.random.default_rng(seed)
-        o = rng.uniform(-20, 20, size=(n, 3)).astype(np.float32)
-        o[:, 1] = np.abs(o[:, 1]) + 0.5
-        d = rng.normal(size=(n, 3)).astype(np.float32)
-        d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        return jnp.asarray(o), jnp.asarray(d)
-
-    @pytest.mark.parametrize(
-        "pretest,recull,chunk_k,phase1",
-        [
-            (True, 0, 1, 0),
-            (False, 2, 1, 0),
-            (True, 2, 1, 0),
-            (False, 0, 3, 0),
-            (True, 3, 2, 0),
-            (False, 0, 1, 2),
-            (True, 2, 1, 2),
-            (True, 2, 2, 1),
-        ],
-    )
-    def test_flag_matrix_matches_brute(self, flat, rng, pretest, recull,
-                                       chunk_k, phase1):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(rng, 96)
-        hb = nearest_hit_brute(flat, o, d, block=128)
-        hf = nearest_hit_fused(flat, o, d, tile_size=32, interpret=True,
-                               pretest=pretest, recull_every=recull,
-                               chunk_k=chunk_k, phase1_trips=phase1)
-        np.testing.assert_array_equal(np.asarray(hb.hit), np.asarray(hf.hit))
-        m = np.asarray(hb.hit)
-        # Brute (classic MT) and the kernel (triple-product det space)
-        # round differently; near-origin hits amplify the cancellation.
-        np.testing.assert_allclose(np.asarray(hb.t)[m], np.asarray(hf.t)[m],
-                                   rtol=1e-4, atol=1e-5)
-        np.testing.assert_array_equal(np.asarray(hb.tri)[m],
-                                      np.asarray(hf.tri)[m])
-
-    @pytest.mark.parametrize("pretest,recull,phase1",
-                             [(True, 2, 0), (True, 0, 2), (False, 2, 2)])
-    def test_flags_any_hit_with_tmax(self, flat, rng, pretest, recull,
-                                     phase1):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(rng, 64)
-        t_max = jnp.full((64,), 18.0, jnp.float32)
-        hb = nearest_hit_brute(flat, o, d, block=128)
-        hf = nearest_hit_fused(flat, o, d, tile_size=32, t_max=t_max,
-                               any_hit=True, interpret=True, pretest=pretest,
-                               recull_every=recull, phase1_trips=phase1)
-        occluded_ref = np.asarray(hb.hit) & (np.asarray(hb.t) < 18.0)
-        np.testing.assert_array_equal(np.asarray(hf.hit), occluded_ref)
-
-    def test_flags_with_ignore_and_nonfinite(self, flat, rng):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(rng, 32)
-        o = o.at[3, 0].set(jnp.nan)
-        hb = nearest_hit_brute(flat, o, d, block=128)
-        itri = jnp.where(jnp.arange(32) % 2 == 0, hb.tri, -1).astype(jnp.int32)
-        hb2 = nearest_hit_brute(flat, o, d, ignore_tri=itri, block=128)
-        hf = nearest_hit_fused(flat, o, d, ignore_tri=itri, tile_size=32,
-                               interpret=True, pretest=True, recull_every=2,
-                               phase1_trips=2)
-        assert not bool(hf.hit[3])
-        np.testing.assert_array_equal(np.asarray(hb2.hit), np.asarray(hf.hit))
-        m = np.asarray(hb2.hit)
-        np.testing.assert_array_equal(np.asarray(hb2.tri)[m],
-                                      np.asarray(hf.tri)[m])
-
-    @pytest.mark.parametrize("chunk_k", [1, 2])
-    def test_mxu_matches_brute(self, flat, rng, chunk_k):
-        """MXU coefficient-table path (interpret mode: exact matmul)."""
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(rng, 64)
-        hb = nearest_hit_brute(flat, o, d, block=128)
-        hf = nearest_hit_fused(flat, o, d, tile_size=32, interpret=True,
-                               mxu=True, chunk_k=chunk_k)
-        np.testing.assert_array_equal(np.asarray(hb.hit), np.asarray(hf.hit))
-        m = np.asarray(hb.hit)
-        np.testing.assert_allclose(np.asarray(hb.t)[m], np.asarray(hf.t)[m],
-                                   rtol=1e-5)
-        np.testing.assert_array_equal(np.asarray(hb.tri)[m],
-                                      np.asarray(hf.tri)[m])
-
-
-class TestPrepickKernel:
-    """Pick-then-walk kernel (kernels/fused.py::_prepick_kernel): same
-    results as the classic walk for any pick budget — overflow tiles are
-    finished exactly by the lax.cond rescue pass."""
-
-    @pytest.fixture(scope="class")
-    def flat(self):
-        return sphere_and_plane_scene().flatten(
-            build_octree=False, cluster_size=16)
-
-    def _rays(self, n=128, seed=7):
-        rng = np.random.default_rng(seed)
-        o = jnp.asarray(rng.normal(0, 8, (n, 3)), jnp.float32)
-        d = rng.normal(0, 1, (n, 3))
-        d /= np.linalg.norm(d, axis=1, keepdims=True)
-        return o, jnp.asarray(d, jnp.float32)
-
-    @pytest.mark.parametrize("prepick", [2, 64])
-    def test_nearest_matches_brute(self, flat, prepick):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays()
-        hb = nearest_hit_brute(flat, o, d, block=128)
-        hf = nearest_hit_fused(flat, o, d, tile_size=32, interpret=True,
-                               prepick=prepick, nbuf=3)
-        np.testing.assert_array_equal(np.asarray(hf.hit), np.asarray(hb.hit))
-        m = np.asarray(hb.hit)
-        np.testing.assert_allclose(np.asarray(hf.t)[m], np.asarray(hb.t)[m],
-                                   rtol=1e-6)
-        np.testing.assert_array_equal(np.asarray(hf.tri)[m],
-                                      np.asarray(hb.tri)[m])
-
-    @pytest.mark.parametrize("prepick", [3, 64])
-    def test_any_hit_with_tmax(self, flat, prepick):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(96, seed=13)
-        tm = jnp.full((96,), 18.0, jnp.float32)
-        hb = nearest_hit_brute(flat, o, d, block=128)
-        ha = nearest_hit_fused(flat, o, d, tile_size=32, t_max=tm,
-                               any_hit=True, interpret=True, prepick=prepick)
-        occ = np.asarray(hb.hit) & (np.asarray(hb.t) < 18.0)
-        np.testing.assert_array_equal(np.asarray(ha.hit), occ)
-        # Cheap any_hit contract: reported t for hits stays below t_max.
-        assert np.all(np.asarray(ha.t)[occ] < 18.0)
-
-    def test_ignore_and_nonfinite(self, flat):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(64, seed=3)
-        o = o.at[5, 1].set(jnp.nan)
-        hb0 = nearest_hit_brute(flat, o, d, block=128)
-        itri = jnp.where(jnp.arange(64) % 2 == 0, hb0.tri, -1).astype(
-            jnp.int32)
-        hb = nearest_hit_brute(flat, o, d, ignore_tri=itri, block=128)
-        hf = nearest_hit_fused(flat, o, d, ignore_tri=itri, tile_size=32,
-                               interpret=True, prepick=5)
-        assert not bool(hf.hit[5])
-        np.testing.assert_array_equal(np.asarray(hb.hit), np.asarray(hf.hit))
-
-
 class TestReverseCull:
     """cull="reverse" (core/intersect.py): the segment occlusion test cast
     from the opposite end accepts exactly the triangles the forward
     backface-culled test accepts (the shadow-from-light reversal's
-    foundation) — across brute, tiled and fused backends."""
+    foundation) — across brute, tiled and walk-kernel backends."""
 
     @pytest.fixture(scope="class")
     def flat(self):
@@ -468,7 +189,7 @@ class TestReverseCull:
     def test_segment_occlusion_matches_forward(self, flat):
         from raytpu.accel.tiled import nearest_hit_tiled
         from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
+        from raytpu.kernels.walk import nearest_hit_walk
 
         rng = np.random.default_rng(21)
         n = 96
@@ -496,238 +217,7 @@ class TestReverseCull:
                                     tile_size=32, t_max=tmax, any_hit=True)
         np.testing.assert_array_equal(np.asarray(h_rev_t.hit), occ_fwd)
 
-        h_rev_f = nearest_hit_fused(flat, b, rev_d, cull="reverse",
-                                    tile_size=32, t_max=tmax, any_hit=True,
-                                    interpret=True)
+        h_rev_f = nearest_hit_walk(flat, b, rev_d, cull="reverse",
+                                   tile_size=32, t_max=tmax, any_hit=True,
+                                   interpret=True)
         np.testing.assert_array_equal(np.asarray(h_rev_f.hit), occ_fwd)
-
-
-class TestSubclusterKernel:
-    """r5 subcluster tlane walk (kernels/fused.py::_tlane_kernel subk > 1):
-    blocks pack 128 // csize spatial leaves; culling/ordering/testing run
-    at leaf granularity with optional fitted-plane entry intervals.  Every
-    result must match brute exactly — the sibling gate and the plane cull
-    are conservative-exact controls."""
-
-    @pytest.fixture(scope="class", params=[64, 32])
-    def flatsub(self, request):
-        return sphere_and_plane_scene().flatten(
-            build_octree=False, cluster_size=request.param
-        )
-
-    def _rays(self, rng, n):
-        o = rng.uniform(-20, 20, size=(n, 3)).astype(np.float32)
-        o[:, 1] = np.abs(o[:, 1]) + 0.5
-        d = rng.normal(size=(n, 3)).astype(np.float32)
-        d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        return jnp.asarray(o), jnp.asarray(d)
-
-    @pytest.mark.parametrize("plane", [False, True])
-    @pytest.mark.parametrize("cull", [True, False])
-    def test_nearest_matches_brute(self, flatsub, rng, cull, plane):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(rng, 128)
-        hb = nearest_hit_brute(flatsub, o, d, cull=cull, block=128)
-        hf = nearest_hit_fused(flatsub, o, d, cull=cull, tile_size=32,
-                               layout="t", plane=plane, interpret=True)
-        np.testing.assert_array_equal(np.asarray(hb.hit),
-                                      np.asarray(hf.hit))
-        m = np.asarray(hb.hit)
-        np.testing.assert_allclose(np.asarray(hb.t)[m],
-                                   np.asarray(hf.t)[m], rtol=1e-5)
-        np.testing.assert_array_equal(np.asarray(hb.tri)[m],
-                                      np.asarray(hf.tri)[m])
-        np.testing.assert_allclose(np.asarray(hb.u)[m],
-                                   np.asarray(hf.u)[m], atol=1e-5)
-
-    @pytest.mark.parametrize("plane", [False, True])
-    def test_any_hit_with_tmax(self, flatsub, rng, plane):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(rng, 64)
-        t_max = jnp.full((64,), 18.0, jnp.float32)
-        hb = nearest_hit_brute(flatsub, o, d, block=128)
-        hf = nearest_hit_fused(flatsub, o, d, tile_size=32, t_max=t_max,
-                               any_hit=True, layout="t", plane=plane,
-                               interpret=True)
-        occluded_ref = np.asarray(hb.hit) & (np.asarray(hb.t) < 18.0)
-        np.testing.assert_array_equal(np.asarray(hf.hit), occluded_ref)
-
-    def test_ignore_and_nonfinite(self, flatsub, rng):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(rng, 32)
-        o = o.at[3, 0].set(jnp.nan)
-        hb = nearest_hit_brute(flatsub, o, d, block=128)
-        itri = jnp.where(jnp.arange(32) % 2 == 0, hb.tri, -1).astype(
-            jnp.int32)
-        hb2 = nearest_hit_brute(flatsub, o, d, ignore_tri=itri, block=128)
-        hf = nearest_hit_fused(flatsub, o, d, ignore_tri=itri,
-                               tile_size=32, layout="t", interpret=True)
-        assert not bool(hf.hit[3])
-        np.testing.assert_array_equal(np.asarray(hb2.hit),
-                                      np.asarray(hf.hit))
-
-    def test_auto_layout_picks_tlane_for_any_hit(self, flatsub):
-        """Subcluster bakes route occlusion queries through tlane too
-        (layout=None auto) — check the auto path stays exact."""
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        rng = np.random.default_rng(7)
-        o, d = self._rays(rng, 64)
-        hb = nearest_hit_brute(flatsub, o, d, block=128)
-        hf = nearest_hit_fused(flatsub, o, d, tile_size=32, any_hit=True,
-                               interpret=True)
-        np.testing.assert_array_equal(np.asarray(hf.hit),
-                                      np.asarray(hb.hit))
-
-    def test_plane_bake_covers_vertices(self, flatsub):
-        """eps must bound every member vertex's plane deviation (the
-        exactness precondition of the plane cull)."""
-        cl = flatsub.clusters
-        sp = np.asarray(cl["sub_plane"])
-        v1 = np.asarray(cl["tri_v1"])
-        e1 = np.asarray(cl["tri_e1"])
-        e2 = np.asarray(cl["tri_e2"])
-        tid = np.asarray(cl["tri_id"])
-        nc_leaf = cl["cluster_min"].shape[0]
-        csz = v1.shape[0] // nc_leaf
-        sk, _, _, nc8 = sp.shape
-        for leaf in range(nc_leaf):
-            g, h = leaf // sk, leaf % sk
-            r, ccol = g // nc8, g % nc8
-            n = sp[h, 0:3, r, ccol]
-            d0 = sp[h, 3, r, ccol]
-            eps = sp[h, 4, r, ccol]
-            sl = slice(leaf * csz, (leaf + 1) * csz)
-            m = tid[sl] >= 0
-            if not m.any():
-                continue
-            pts = np.concatenate(
-                [v1[sl][m], (v1 + e1)[sl][m], (v1 + e2)[sl][m]])
-            assert np.abs(pts @ n - d0).max() <= eps
-
-
-class TestRowPlaneCull:
-    """r5: the classic row kernel's block-level plane cull (csize-128
-    bakes reuse the sub_plane rows at block granularity; subcluster bakes
-    are guarded off — leaf planes cannot be combined)."""
-
-    def test_row_plane_matches_brute(self, rng):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        flat = sphere_and_plane_scene().flatten(
-            build_octree=False, cluster_size=128)
-        o = jnp.asarray(
-            rng.uniform(-20, 20, size=(96, 3)).astype(np.float32))
-        o = o.at[:, 1].set(jnp.abs(o[:, 1]) + 0.5)
-        d = rng.normal(size=(96, 3)).astype(np.float32)
-        d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True))
-        hb = nearest_hit_brute(flat, o, d, block=128)
-        for knobs in (dict(), dict(pretest=True, recull_every=2)):
-            hf = nearest_hit_fused(flat, o, d, tile_size=32, layout="row",
-                                   plane=True, interpret=True, **knobs)
-            np.testing.assert_array_equal(np.asarray(hb.hit),
-                                          np.asarray(hf.hit))
-            m = np.asarray(hb.hit)
-            np.testing.assert_array_equal(np.asarray(hb.tri)[m],
-                                          np.asarray(hf.tri)[m])
-
-    def test_subcluster_bake_guards_row_plane_off(self, rng):
-        from raytpu.accel.traverse import nearest_hit_brute
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        flat = sphere_and_plane_scene().flatten(
-            build_octree=False, cluster_size=64)
-        o = jnp.asarray(
-            rng.uniform(-20, 20, size=(64, 3)).astype(np.float32))
-        o = o.at[:, 1].set(jnp.abs(o[:, 1]) + 0.5)
-        d = rng.normal(size=(64, 3)).astype(np.float32)
-        d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True))
-        hb = nearest_hit_brute(flat, o, d, block=128)
-        hf = nearest_hit_fused(flat, o, d, tile_size=32, layout="row",
-                               plane=True, interpret=True)
-        np.testing.assert_array_equal(np.asarray(hb.hit),
-                                      np.asarray(hf.hit))
-
-
-class TestKernelRowResolve:
-    """In-kernel winner shade-row resolve (kernels/fused.py ``rows`` path):
-    per settled tile the kernel DMAs the unique winner blocks from the
-    cluster-ordered ``sblock`` bake and extracts each ray's (32,)-float
-    row with an exact one-hot MXU contraction (three bf16 limbs per f32
-    channel, one nonzero product per output element).  Rows must be
-    BIT-identical to the XLA ``tri_shade[tri]`` gather they replace."""
-
-    @pytest.fixture(scope="class", params=[128, 64])
-    def flatr(self, request):
-        return sphere_and_plane_scene(textured=True).flatten(
-            build_octree=False, cluster_size=request.param
-        )
-
-    def _rays(self, rng, n):
-        o = rng.uniform(-20, 20, size=(n, 3)).astype(np.float32)
-        o[:, 1] = np.abs(o[:, 1]) + 0.5
-        d = rng.normal(size=(n, 3)).astype(np.float32)
-        d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        return jnp.asarray(o), jnp.asarray(d)
-
-    def test_rows_match_tri_shade_gather(self, flatr, rng):
-        import jax
-
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(rng, 256)
-        h, rows = nearest_hit_fused(flatr, o, d, tile_size=64, layout="t",
-                                    return_rows=True, interpret=True)
-        assert rows is not None and rows.shape == (256, 32)
-        m = np.asarray(h.hit)
-        ref = np.asarray(flatr.tri_shade[jnp.maximum(h.tri, 0)])
-        got = np.asarray(rows)
-        # Channels 0-30 bit-exact; channel 31 is the mesh id as a float
-        # VALUE (tri_shade stores an int32 bitcast).
-        np.testing.assert_array_equal(got[m][:, :31], ref[m][:, :31])
-        mesh_ref = np.asarray(jax.lax.bitcast_convert_type(
-            flatr.tri_shade[..., 31], jnp.int32))[
-            np.asarray(jnp.maximum(h.tri, 0))]
-        np.testing.assert_array_equal(got[m][:, 31].astype(np.int32),
-                                      mesh_ref[m])
-        assert np.all(got[~m] == 0.0)
-
-    def test_rows_none_when_unsupported(self, flatr, rng):
-        from raytpu.kernels.fused import nearest_hit_fused
-
-        o, d = self._rays(rng, 64)
-        # any_hit never resolves rows; row layout has no resolve phase.
-        h, rows = nearest_hit_fused(flatr, o, d, tile_size=32,
-                                    any_hit=True, return_rows=True,
-                                    interpret=True)
-        assert rows is None
-        h, rows = nearest_hit_fused(flatr, o, d, tile_size=32,
-                                    layout="row", return_rows=True,
-                                    interpret=True)
-        assert rows is None
-
-    def test_render_rows_vs_gather_bitexact(self, rng):
-        import dataclasses
-
-        from raytpu.config import Intersector, Quantize, RenderConfig
-        from raytpu.render.wavefront import render_image
-
-        scene = sphere_and_plane_scene(reflect=0.3, textured=True)
-        flat = scene.flatten(build_octree=False, cluster_size=128)
-        cfg = RenderConfig(width=32, height=32, max_reflections=2,
-                           quantize=Quantize.NONE, tile_pixels=32 * 32,
-                           intersector=Intersector.PALLAS)
-        img_rows = render_image(flat, cfg)
-        cl2 = dict(flat.clusters)
-        cl2.pop("sblock")
-        img_gather = render_image(flat.replace(clusters=cl2), cfg)
-        np.testing.assert_array_equal(np.asarray(img_rows),
-                                      np.asarray(img_gather))

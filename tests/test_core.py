@@ -3,6 +3,7 @@
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from raytpu.core import xna
@@ -180,3 +181,124 @@ class TestVectorOps:
         n = jnp.asarray([0.0, 1.0, 0.0])
         r = np.asarray(refract_xna(d, n, 1.5, 1.0))
         assert np.isnan(r).any()
+
+
+# --- full float32 products and the FlatScene pytree -------------------------
+
+
+def _dot_precisions(jaxpr, out):
+    """Precision of every dot_general in ``jaxpr`` and its sub-jaxprs."""
+    from jax.extend import core as jcore
+
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for p in eqn.params.values():
+            for sub in (p if isinstance(p, (list, tuple)) else [p]):
+                if isinstance(sub, jcore.ClosedJaxpr):
+                    _dot_precisions(sub.jaxpr, out)
+                elif isinstance(sub, jcore.Jaxpr):
+                    _dot_precisions(sub, out)
+    return out
+
+
+_HIGHEST = (jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST)
+
+
+class TestFullPrecisionProducts:
+    """Every matrix product the render and fit paths trace asks for full
+    float32 (an accelerator may otherwise run f32 products in TF32)."""
+
+    def test_render_rays_with_camera(self):
+        from raytpu.core.camera import camera_rays
+        from raytpu.render.wavefront import render_rays
+        from tests.scenes import default_camera, small_cfg, sphere_and_plane_scene
+
+        flat = sphere_and_plane_scene().flatten(build_octree=False,
+                                                cluster_size=16)
+        cfg = small_cfg(width=8, height=8, tile_pixels=64)
+        cam = default_camera()
+        jp = jax.make_jaxpr(
+            lambda s: render_rays(s, cfg, *camera_rays(cam, 8, 8)))(flat)
+        precisions = _dot_precisions(jp.jaxpr, [])
+        assert precisions, "the camera's unproject traces matrix products"
+        assert all(p == _HIGHEST for p in precisions), precisions
+
+    def test_fit_step(self):
+        import optax
+
+        from raytpu.core.camera import camera_rays
+        from raytpu.diff.fit import make_fit_step
+        from raytpu.diff.params import GEOMETRY, extract_params
+        from tests.scenes import crate_scene, default_camera, small_cfg
+
+        flat = crate_scene().flatten(build_octree=False, cluster_size=16)
+        cfg = small_cfg(width=8, height=8, tile_pixels=64, max_reflections=1)
+        params = extract_params(flat, GEOMETRY)
+        opt = optax.sgd(1e-3)
+        step = make_fit_step(flat, cfg, opt, fields=GEOMETRY)
+        o, d = camera_rays(default_camera(), 8, 8)
+        jp = jax.make_jaxpr(step)(params, opt.init(params), o, d,
+                                  jnp.zeros((64, 3)))
+        precisions = _dot_precisions(jp.jaxpr, [])
+        assert all(p == _HIGHEST for p in precisions), precisions
+
+    def test_instance_transforms(self):
+        from raytpu.accel.instanced import instance_world_aabb
+        from tests.scenes import sphere_and_plane_scene
+
+        bake = sphere_and_plane_scene().flatten(build_octree=False,
+                                                cluster_size=16)
+        world = np.eye(4, dtype=np.float32)
+        jp = jax.make_jaxpr(lambda w: instance_world_aabb(bake, w))(world)
+        precisions = _dot_precisions(jp.jaxpr, [])
+        assert precisions and all(p == _HIGHEST for p in precisions)
+
+
+class TestFlatScenePytree:
+    """FlatScene is a frozen dataclass registered as a pytree: arrays are
+    leaves, the ``_static`` fields are metadata."""
+
+    @pytest.fixture(scope="class")
+    def flat(self):
+        from tests.scenes import sphere_and_plane_scene
+
+        return sphere_and_plane_scene().flatten(build_octree=False,
+                                                cluster_size=16)
+
+    def test_roundtrip_and_static_metadata(self, flat):
+        leaves, treedef = jax.tree.flatten(flat)
+        assert all(hasattr(x, "shape") for x in leaves)
+        back = jax.tree.unflatten(treedef, leaves)
+        assert back.num_tris == flat.num_tris
+        assert back.light_kinds == flat.light_kinds
+        assert back.has_transparent == flat.has_transparent
+        # Static fields are not leaves: a scene differing only in them has
+        # the same leaves but another tree structure.
+        other = flat.replace(has_dual_branch=not flat.has_dual_branch)
+        assert jax.tree.structure(other) != treedef
+        assert len(jax.tree.leaves(other)) == len(leaves)
+
+    def test_replace_and_frozen(self, flat):
+        import dataclasses
+
+        moved = flat.replace(tri_v1=flat.tri_v1 + 1.0)
+        np.testing.assert_allclose(np.asarray(moved.tri_v1),
+                                   np.asarray(flat.tri_v1) + 1.0)
+        assert moved.num_tris == flat.num_tris
+        with pytest.raises(dataclasses.FrozenInstanceError):
+            flat.num_tris = 0
+
+    def test_jit_retraces_on_static_change_only(self, flat):
+        traces = []
+
+        @jax.jit
+        def f(s):
+            traces.append(s.has_dual_branch)
+            return s.tri_v1.sum()
+
+        f(flat)
+        f(flat.replace(tri_v1=flat.tri_v1 * 2.0))
+        assert len(traces) == 1
+        f(flat.replace(has_dual_branch=not flat.has_dual_branch))
+        assert len(traces) == 2

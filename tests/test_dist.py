@@ -27,7 +27,8 @@ def test_mesh_spans_all_devices():
     "intersector", [Intersector.BRUTE, Intersector.OCTREE, Intersector.PALLAS]
 )
 def test_sharded_matches_single_device(flat, intersector):
-    cfg = small_cfg(width=32, height=24, intersector=intersector)
+    cfg = small_cfg(width=32, height=24, intersector=intersector,
+                    interpret=intersector == Intersector.PALLAS)
     cam = default_camera(aspect=32 / 24)
     mesh = make_mesh()
     scene_rep = replicate_scene(flat, mesh)
@@ -86,13 +87,14 @@ class TestRingShardedBigScene:
 
         mesh = make_mesh(devices=jax.devices()[:4])
         shards = shard_scene_clusters(setup, mesh)
-        # Each shard holds only ~1/4 of the cluster blocks.
-        n_local = shards["block"].shape[1]
-        total = setup.clusters["block"].shape[0]
+        # Each shard holds only ~1/4 of the clusters.
+        n_local = shards["cluster_min"].shape[1]
+        total = setup.clusters["cluster_min"].shape[0]
         assert n_local <= -(-total // 4) + 1
 
         o, d = self._rays()
-        hr = nearest_hit_ring(shards, o, d, mesh, intersector=intersector)
+        hr = nearest_hit_ring(shards, o, d, mesh, intersector=intersector,
+                              interpret=intersector == "pallas")
         hb = nearest_hit_brute(setup, o, d, block=256)
         np.testing.assert_array_equal(np.asarray(hr.hit), np.asarray(hb.hit))
         m = np.asarray(hb.hit)

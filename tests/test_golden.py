@@ -14,10 +14,10 @@ Configs (BASELINE.md, miniaturized):
   g5 — 100k-tri reflective terrain, 256^2, 2 bounces + shadow
        (config 4's shape — the DEPTH golden: a traversal regression that
        only manifests at deep walks flips this image, and it is checked
-       through BOTH the tiled XLA backend and the fused Pallas kernel in
+       through BOTH the tiled XLA backend and the walk kernel in
        interpret mode)
 
-g1-g4 render at 128^2 (raised from 48^2, verdict r4 #6).
+g1-g4 render at 128^2.
 """
 
 import os
@@ -124,12 +124,12 @@ def test_golden(name):
                          [Intersector.TILED, Intersector.PALLAS])
 def test_golden_terrain_depth(intersector):
     """The 256^2 / 100k-tri / 2-bounce depth golden through BOTH deep
-    backends: the tiled XLA walk and the fused Pallas kernel (interpret
-    mode on CPU — the same walk/order/acceptance the TPU runs)."""
+    backends: the tiled XLA walk and the walk kernel (kernels/walk.py,
+    interpret mode on CPU — the same walk/order/acceptance the GPU runs)."""
     import dataclasses
 
     flat, cfg, cam = _terrain_setup()
-    cfg = dataclasses.replace(cfg, intersector=intersector)
+    cfg = dataclasses.replace(cfg, intersector=intersector, interpret=True)
     img = np.asarray(render_image(flat, cfg, cam))
     _compare("g5_terrain_depth", img)
 

@@ -1,4 +1,4 @@
-"""Reference-asset golden renders (VERDICT r3 missing #4 / BASELINE cfg 1).
+"""Reference-asset golden renders (BASELINE cfg 1).
 
 These anchor the validation loop on the reference's OWN content:
 

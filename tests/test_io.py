@@ -191,3 +191,108 @@ class TestAviAudio:
         sz = struct.unpack_from("<I", data, k - 4)[0]
         got = np.frombuffer(data[k:k + sz], "<i2").reshape(-1, 2)
         np.testing.assert_array_equal(got, pcm)
+
+
+class TestPngCodec:
+    """PNG through the standard library (io/image.py), no PIL."""
+
+    @pytest.mark.parametrize("shape", [(17, 23, 3), (1, 1, 3), (9, 4)])
+    def test_roundtrip(self, tmp_path, shape):
+        from raytpu.io.image import decode_png, encode_png
+
+        rng = np.random.default_rng(3)
+        img = rng.integers(0, 256, size=shape, dtype=np.uint8)
+        back = decode_png(encode_png(img))
+        want = img if img.ndim == 3 else np.repeat(img[..., None], 3, -1)
+        np.testing.assert_array_equal(back, want)
+
+    def test_filtered_rows_decode(self):
+        """Scanlines with the Sub, Up, Average and Paeth filters (what
+        other encoders write) decode exactly."""
+        import zlib
+
+        from raytpu.io.image import decode_png
+
+        rng = np.random.default_rng(4)
+        img = rng.integers(0, 256, size=(4, 5, 3)).astype(np.int32)
+        flat = img.reshape(4, 15)
+        raw = []
+        prev = np.zeros(15, np.int32)
+        for y, ftype in enumerate((1, 2, 3, 4)):
+            cur = flat[y]
+            enc = np.zeros(15, np.int32)
+            for x in range(15):
+                a = cur[x - 3] if x >= 3 else 0
+                b = prev[x]
+                c = prev[x - 3] if x >= 3 else 0
+                if ftype == 1:
+                    pred = a
+                elif ftype == 2:
+                    pred = b
+                elif ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (
+                        b if pb <= pc else c)
+                enc[x] = (cur[x] - pred) & 0xFF
+            raw.append(bytes([ftype]) + enc.astype(np.uint8).tobytes())
+            prev = cur
+
+        def chunk(tag, data):
+            return (struct.pack(">I", len(data)) + tag + data
+                    + struct.pack(">I", zlib.crc32(tag + data)))
+
+        blob = (b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", 5, 4, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(b"".join(raw)))
+                + chunk(b"IEND", b""))
+        np.testing.assert_array_equal(decode_png(blob), img.astype(np.uint8))
+
+
+class TestCheckpoint:
+    """io/checkpoint.py: np.savez of the flattened pytree."""
+
+    def _state(self, scale=1.0):
+        import jax.numpy as jnp
+        import optax
+
+        params = {"a": jnp.arange(6.0).reshape(2, 3) * scale,
+                  "b": jnp.ones((4,), jnp.float32) * scale}
+        return params, optax.adam(1e-2).init(params)
+
+    def test_save_restore_roundtrip(self, tmp_path):
+        import jax
+
+        from raytpu.io.checkpoint import FitCheckpointer
+
+        ck = FitCheckpointer(str(tmp_path))
+        assert ck.restore_latest(self._state()) is None
+        ck.save(3, self._state(2.0))
+        step, state = ck.restore_latest(self._state())
+        assert step == 3
+        want = jax.tree.leaves(self._state(2.0))
+        got = jax.tree.leaves(state)
+        assert jax.tree.structure(state) == jax.tree.structure(
+            self._state())
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+            assert np.asarray(g).dtype == np.asarray(w).dtype
+
+    def test_keeps_newest(self, tmp_path):
+        from raytpu.io.checkpoint import FitCheckpointer
+
+        ck = FitCheckpointer(str(tmp_path), keep=2)
+        for step in (1, 2, 5):
+            ck.save(step, self._state(float(step)))
+        assert sorted(os.listdir(tmp_path)) == ["step_00000002.npz",
+                                                "step_00000005.npz"]
+        assert ck.restore_latest(self._state())[0] == 5
+
+    def test_tree_mismatch_raises(self, tmp_path):
+        from raytpu.io.checkpoint import FitCheckpointer
+
+        ck = FitCheckpointer(str(tmp_path))
+        ck.save(1, self._state())
+        with pytest.raises(ValueError, match="tree structure"):
+            ck.restore_latest({"a": np.zeros((2, 3))})

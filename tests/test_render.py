@@ -33,12 +33,12 @@ class TestRenderImage:
 
     def test_pallas_full_shading_matches_brute(self):
         """End-to-end shading (shadows, reflection, texture) through the
-        fused Pallas intersector (interpret mode on CPU)."""
+        walk kernel (kernels/walk.py, interpret mode on CPU)."""
         sc = sphere_and_plane_scene(reflect=0.5, textured=True)
         a = _img(sc, small_cfg(intersector=Intersector.BRUTE,
                                max_reflections=2))
         b = _img(sc, small_cfg(intersector=Intersector.PALLAS,
-                               max_reflections=2))
+                               max_reflections=2, interpret=True))
         np.testing.assert_allclose(a, b, atol=1e-5)
 
     def test_reflections_add_light(self):

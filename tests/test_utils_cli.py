@@ -287,30 +287,6 @@ def test_interactive_arrow_key_decode():
     _os.close(w)
 
 
-def test_fused_uvt_id_limit_message():
-    """Scenes >= 2^24 triangle slots are rejected by the fused uvt path
-    with a clear error (other backends have no limit)."""
-    import jax.numpy as jnp
-
-    from raytpu.kernels.fused import nearest_hit_fused
-    from tests.scenes import sphere_and_plane_scene
-
-    flat = sphere_and_plane_scene().flatten(build_octree=False,
-                                            cluster_size=16)
-    # Fake an enormous slot count by lying about the block's leading dim
-    # via a zero-copy broadcast view of the dict entry.
-    big = dict(flat.clusters)
-    nrep = (1 << 24) // (big["block"].shape[1] * 0 + big["block"].shape[0]
-                         * big["block"].shape[2]) + 1
-    big["block"] = jnp.broadcast_to(
-        big["block"][:1], (nrep * big["block"].shape[0],) +
-        big["block"].shape[1:])
-    fake = flat.replace(clusters=big)
-    o = jnp.zeros((4, 3)); d = jnp.ones((4, 3))
-    with pytest.raises(ValueError, match="16.7M"):
-        nearest_hit_fused(fake, o, d, tile_size=4, interpret=True)
-
-
 def test_interactive_object_spin_rebakes():
     """j/k spin the first object (the reference's N/M keys) by re-baking
     the host scene; without a host scene they are noops."""
@@ -371,3 +347,36 @@ class TestCliDistribution:
         assert main(args + ["--out", single]) == 0
         a, b = read_image(out), read_image(single)
         assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+class TestCompileCacheRule:
+    """utils/cache.py: JAX_COMPILATION_CACHE_DIR wins when set; otherwise
+    the cache is the checkout's .jax_cache."""
+
+    def test_env_dir_is_left_to_jax(self, monkeypatch):
+        import jax
+
+        from raytpu.utils import cache
+
+        updates = []
+        monkeypatch.setattr(jax.config, "update",
+                            lambda *a: updates.append(a))
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere/cache")
+        assert cache.setup_compile_cache() == "/elsewhere/cache"
+        assert updates == []
+
+    def test_default_is_repo_dot_jax_cache(self, monkeypatch):
+        import jax
+
+        from raytpu.utils import cache
+
+        updates = []
+        monkeypatch.setattr(jax.config, "update",
+                            lambda *a: updates.append(a))
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        want = os.path.join(repo, ".jax_cache")
+        assert cache.setup_compile_cache() == want
+        assert updates == [("jax_compilation_cache_dir", want)]
+        with open(os.path.join(repo, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()
